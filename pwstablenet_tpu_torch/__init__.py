@@ -1,0 +1,16 @@
+"""PyTorch/CUDA port of pwstablenet_tpu for NVIDIA Hopper (H100).
+
+The JAX package ``pwstablenet_tpu`` is the reference; this package
+mirrors its layout, module by module, and imports nothing of it (nor
+JAX).  Public functions keep the reference's layout: NHWC images and
+(x, y)-last grids and flows.
+
+Layout
+------
+- ``config``    model and pipeline configuration (a copy of the reference's)
+- ``ops``       pixels, plain grid sample (the kernels' oracle), warps
+- ``kernels``   hand-written CUDA kernels (``csrc/``), wrappers, plain versions
+- ``models``    the cascaded UNet generator (``nn.Module``s)
+- ``interop``   weights from the JAX package's parameter tree
+- ``pipeline``  streaming inference: clip in -> stabilized clip + warp fields
+"""

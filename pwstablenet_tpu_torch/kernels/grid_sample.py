@@ -1,0 +1,224 @@
+"""Hand-written CUDA grid-sample kernels, their wrappers and their plain
+PyTorch versions.
+
+Two kernels (``csrc/grid_sample.cu``) replace the forward Pallas TPU
+kernels of ``pwstablenet_tpu/kernels/grid_sample_pallas.py``:
+
+- ``grid_sample_f32`` (replaces ``grid_sample_pallas``): NHWC f32 image,
+  f32 grid, border or zeros padding, either ``align_corners``.
+- ``grid_sample_packed_u8`` (replaces ``grid_sample_pallas_packed``):
+  uint8 RGB in, uint8 RGB out, border padding; each channel blends in
+  f32 on the 0..255 scale, rounds half to even and saturates.
+
+Reflection padding is a grid pre-reflection (``_reflect_grid``)
+followed by a border sample, for both kernels.
+
+Each wrapper runs its plain version when the tensors lie on the CPU,
+and launches its kernel on a CUDA tensor: there is no fallback between
+the two.  ``LAUNCHES`` counts kernel launches per kernel; the plain
+versions do not count.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from pwstablenet_tpu_torch.kernels._build import library
+from pwstablenet_tpu_torch.ops.grid_sample import _gather, _unnormalize
+from pwstablenet_tpu_torch.ops.grid_sample import grid_sample as _oracle
+
+LAUNCHES = {"grid_sample_f32": 0, "grid_sample_packed_u8": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _reflect_grid(
+    grid: torch.Tensor, h: int, w: int, align_corners: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pre-reflect a normalized grid into in-bounds coordinates (torch
+    ``reflection`` padding), returning ``(reflected_grid, dsign)``.
+
+    After reflection and clip the coordinates lie in ``[0, size-1]``, so
+    a ``border`` sample of the reflected grid has ``reflection``
+    semantics.  ``dsign`` is d(reflected)/d(original) in {-1, 0, +1},
+    for the gradient of the training slice."""
+    outs, signs = [], []
+    for axis, size in ((0, w), (1, h)):
+        g = grid[..., axis].to(torch.float32)
+        if size == 1:
+            outs.append(torch.full_like(g, -1.0))
+            signs.append(torch.zeros_like(g))
+            continue
+        if align_corners:
+            scale = 0.5 * (size - 1)
+            x = (g + 1.0) * scale
+            low, span = 0.0, float(size - 1)
+        else:
+            scale = 0.5 * size
+            x = (g + 1.0) * scale - 0.5
+            low, span = -0.5, float(size)
+        d = x - low
+        s1 = torch.where(d >= 0.0, 1.0, -1.0)
+        a = torch.abs(d)
+        extra = torch.remainder(a, span)
+        even = torch.remainder(torch.floor(a / span), 2.0) == 0.0
+        xr = torch.where(even, extra + low, span - extra + low)
+        s2 = torch.where(even, 1.0, -1.0)
+        inb = (xr >= 0.0) & (xr <= size - 1)
+        xrc = torch.clamp(xr, 0.0, size - 1)
+        if align_corners:
+            gr = xrc / scale - 1.0
+        else:
+            gr = (xrc + 0.5) / scale - 1.0
+        outs.append(gr)
+        signs.append(s1 * s2 * inb.to(torch.float32))
+    return torch.stack(outs, dim=-1), torch.stack(signs, dim=-1)
+
+
+def _border_grid(grid, h, w, padding_mode, align_corners, allowed):
+    if padding_mode not in allowed:
+        raise ValueError(
+            f"padding_mode must be one of {allowed}, got {padding_mode!r}"
+        )
+    if padding_mode == "reflection":
+        return _reflect_grid(grid, h, w, align_corners)[0], "border"
+    return grid, padding_mode
+
+
+def _on_cpu(image: torch.Tensor, grid: torch.Tensor) -> bool:
+    """True for CPU tensors; CUDA tensors return False; anything else
+    (mixed devices, other device types) raises."""
+    if image.device.type == "cpu" and grid.device.type == "cpu":
+        return True
+    if image.device.type == "cuda" and image.device == grid.device:
+        return False
+    raise ValueError(
+        f"image and grid must both lie on the CPU or on one CUDA "
+        f"device; got {image.device} and {grid.device}"
+    )
+
+
+def _check(image, grid, dtype, channels=None):
+    if image.dtype != dtype:
+        raise ValueError(f"image must be {dtype}, got {image.dtype}")
+    if grid.dtype != torch.float32:
+        raise ValueError(f"grid must be float32, got {grid.dtype}")
+    if image.ndim != 4 or grid.ndim != 4 or grid.shape[-1] != 2:
+        raise ValueError(
+            f"expected image (B,H,W,C) and grid (B,Ho,Wo,2); got "
+            f"{tuple(image.shape)} and {tuple(grid.shape)}"
+        )
+    if grid.shape[0] != image.shape[0]:
+        raise ValueError("image and grid batch sizes differ")
+    if channels is not None and image.shape[-1] != channels:
+        raise ValueError(f"image must have {channels} channels")
+
+
+def _check_contiguous(*tensors):
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+
+
+# ---------------------------------------------------------------------
+# f32 sample
+# ---------------------------------------------------------------------
+
+
+def grid_sample_f32_plain(image, grid, padding_mode="border", align_corners=True):
+    """Plain version of ``grid_sample_f32``: the same pre-reflection and
+    the oracle's bilinear arithmetic."""
+    _, h, w, _ = image.shape
+    grid, mode = _border_grid(
+        grid, h, w, padding_mode, align_corners,
+        ("border", "zeros", "reflection"),
+    )
+    return _oracle(image, grid, "bilinear", mode, align_corners)
+
+
+def grid_sample_f32(image, grid, padding_mode="border", align_corners=True):
+    """Bilinear sample: image (B,H,W,C) f32, grid (B,Ho,Wo,2) f32 ->
+    (B,Ho,Wo,C) f32."""
+    _check(image, grid, torch.float32)
+    if _on_cpu(image, grid):
+        return grid_sample_f32_plain(image, grid, padding_mode, align_corners)
+    b, h, w, c = image.shape
+    _, ho, wo, _ = grid.shape
+    grid, mode = _border_grid(
+        grid, h, w, padding_mode, align_corners,
+        ("border", "zeros", "reflection"),
+    )
+    _check_contiguous(image, grid)
+    out = torch.empty((b, ho, wo, c), dtype=torch.float32, device=image.device)
+    err = library().pwst_grid_sample_f32(
+        image.data_ptr(), grid.data_ptr(), out.data_ptr(),
+        b, h, w, c, ho, wo, int(mode == "zeros"), int(bool(align_corners)),
+        torch.cuda.current_stream(image.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"grid_sample_f32 launch failed: CUDA error {err}")
+    LAUNCHES["grid_sample_f32"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------
+# packed uint8 RGB sample
+# ---------------------------------------------------------------------
+
+
+def grid_sample_packed_u8_plain(image, grid, padding_mode="border", align_corners=True):
+    """Plain version of ``grid_sample_packed_u8``, step for step."""
+    _, h, w, _ = image.shape
+    grid, _ = _border_grid(
+        grid, h, w, padding_mode, align_corners, ("border", "reflection")
+    )
+    x = torch.clamp(_unnormalize(grid[..., 0], w, align_corners), 0.0, w - 1)
+    y = torch.clamp(_unnormalize(grid[..., 1], h, align_corners), 0.0, h - 1)
+    x0f = torch.floor(x)
+    y0f = torch.floor(y)
+    fx = (x - x0f)[..., None]
+    fy = (y - y0f)[..., None]
+    x0 = x0f.to(torch.int64)
+    y0 = y0f.to(torch.int64)
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+
+    def tap(iy, ix):
+        return _gather(image, iy, ix).to(torch.float32)
+
+    v = (1.0 - fy) * (1.0 - fx) * tap(y0, x0)
+    v = v + (1.0 - fy) * fx * tap(y0, x1)
+    v = v + fy * (1.0 - fx) * tap(y1, x0)
+    v = v + fy * fx * tap(y1, x1)
+    return torch.clamp(torch.round(v), 0.0, 255.0).to(torch.uint8)
+
+
+def grid_sample_packed_u8(image, grid, padding_mode="border", align_corners=True):
+    """uint8 RGB sample: image (B,H,W,3) uint8, grid (B,Ho,Wo,2) f32 ->
+    (B,Ho,Wo,3) uint8; border or reflection padding."""
+    _check(image, grid, torch.uint8, channels=3)
+    if _on_cpu(image, grid):
+        return grid_sample_packed_u8_plain(image, grid, padding_mode, align_corners)
+    b, h, w, _ = image.shape
+    _, ho, wo, _ = grid.shape
+    grid, _ = _border_grid(
+        grid, h, w, padding_mode, align_corners, ("border", "reflection")
+    )
+    _check_contiguous(image, grid)
+    out = torch.empty((b, ho, wo, 3), dtype=torch.uint8, device=image.device)
+    err = library().pwst_grid_sample_packed_u8(
+        image.data_ptr(), grid.data_ptr(), out.data_ptr(),
+        b, h, w, ho, wo, int(bool(align_corners)),
+        torch.cuda.current_stream(image.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(
+            f"grid_sample_packed_u8 launch failed: CUDA error {err}"
+        )
+    LAUNCHES["grid_sample_packed_u8"] += 1
+    return out

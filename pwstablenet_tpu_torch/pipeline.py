@@ -1,0 +1,278 @@
+"""Public inference pipeline: unstable clip in -> stabilized clip + warp
+fields out.
+
+- The generator always runs at its fixed ``model_resolution``; warp
+  fields are emitted in resolution-independent normalized units and
+  applied to the full-resolution frames by the packed uint8 kernel.
+- Frames cross host->device once per chunk, as uint8 from pinned host
+  memory; the temporal window stack is built on the device (a frame is
+  reused by up to ``temporal_window`` windows).
+- Chunks stream with a bounded number in flight: chunk i+k is dispatched
+  while chunk i's results copy back into pinned host memory.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+without a card and without ``device="cpu"`` they raise.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from pwstablenet_tpu_torch.config import ModelConfig, PipelineConfig
+from pwstablenet_tpu_torch.models.generator import CascadedGenerator
+from pwstablenet_tpu_torch.ops.pixels import from_unit, to_unit
+from pwstablenet_tpu_torch.ops.warp import warp_image
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card; the CPU only when asked for by name."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on the card; pass "
+                "device='cpu' to run the plain CPU path explicitly"
+            )
+        return torch.device("cuda")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not available")
+    return device
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+class _Pending:
+    """A dispatched chunk: device results copying back to the host."""
+
+    def __init__(self, stab: torch.Tensor, flow: torch.Tensor, pad: int, src):
+        self.pad = pad
+        self._src = src  # keep the pinned H2D source alive until done
+        self.event = None
+        if stab.device.type == "cuda":
+            self.stab = torch.empty(stab.shape, dtype=stab.dtype, pin_memory=True)
+            self.flow = torch.empty(flow.shape, dtype=flow.dtype, pin_memory=True)
+            self.stab.copy_(stab, non_blocking=True)
+            self.flow.copy_(flow, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.stab, self.flow = stab, flow
+
+    def result(self) -> Tuple[np.ndarray, np.ndarray]:
+        if self.event is not None:
+            self.event.synchronize()
+        stab, flow = self.stab.numpy(), self.flow.numpy()
+        if self.pad:
+            stab, flow = stab[: -self.pad], flow[: -self.pad]
+        return stab, flow
+
+
+class Stabilizer:
+    """Video stabilization inference engine.
+
+    ``state_dict`` may come from ``interop.from_jax`` (weights of the
+    JAX package) or from another ``Stabilizer``; without one the
+    generator is initialised from ``torch.Generator().manual_seed(seed)``
+    with an identity-warp head."""
+
+    def __init__(
+        self,
+        model_cfg: Optional[ModelConfig] = None,
+        pipeline_cfg: Optional[PipelineConfig] = None,
+        state_dict: Optional[Dict[str, torch.Tensor]] = None,
+        seed: int = 0,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.model_cfg = model_cfg or ModelConfig()
+        self.pipeline_cfg = pipeline_cfg or PipelineConfig()
+        gen = torch.Generator().manual_seed(seed)
+        model = CascadedGenerator(self.model_cfg, generator=gen)
+        if state_dict is not None:
+            model.load_state_dict(state_dict)
+        self.model = model.to(self.device).eval()
+
+    # ------------------------------------------------------------------
+    @torch.inference_mode()
+    def _chunk_step(self, frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """frames (N+T-1, H, W, 3) on the device -> (stabilized
+        (N, H, W, 3) in the input dtype, flows (N, h, w, 2))."""
+        cfg = self.model_cfg
+        mh, mw = cfg.model_resolution
+        T = cfg.temporal_window
+        is_int = not frames.dtype.is_floating_point
+        n = frames.shape[0] - (T - 1)
+        framesf = to_unit(frames)
+        # antialiased bilinear downscale (jax.image.resize's default)
+        small = F.interpolate(
+            framesf.permute(0, 3, 1, 2), size=(mh, mw), mode="bilinear",
+            align_corners=False, antialias=True,
+        ).permute(0, 2, 3, 1)
+        # window j contributes frames [j, j+n)
+        stacks = torch.cat([small[j : j + n] for j in range(T)], dim=-1)
+        flow = self.model(stacks)[-1]
+        # warp the RAW center frames: uint8 takes the packed kernel
+        centers = frames[cfg.center_index : cfg.center_index + n]
+        stabilized = warp_image(
+            centers, flow,
+            padding_mode=cfg.padding_mode, align_corners=cfg.align_corners,
+        )
+        if is_int and stabilized.dtype.is_floating_point:
+            stabilized = from_unit(stabilized)
+        flow = flow.to(getattr(torch, self.pipeline_cfg.warp_field_dtype))
+        return stabilized, flow
+
+    # ------------------------------------------------------------------
+    def stabilize_frames(
+        self, frames: np.ndarray, batch_windows: Optional[int] = None
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Stabilize a clip.
+
+        Args:
+          frames: (time, H, W, 3) RGB, uint8 0..255 (the preferred
+            transport format) or float32 in [-1, 1].
+        Returns:
+          (stabilized (time, H, W, 3) in the input dtype, warp fields
+          (time, h, w, 2) normalized displacements at model resolution).
+        """
+        outs, flows = [], []
+        for s, f in self._stream(iter([frames]), batch_windows):
+            outs.append(s)
+            flows.append(f)
+        return np.concatenate(outs), np.concatenate(flows)
+
+    # ------------------------------------------------------------------
+    def _stream(
+        self, chunks: Iterator[np.ndarray], batch_windows: Optional[int]
+    ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """Streaming loop over decoded chunks.
+
+        Keeps a halo of ``temporal_window - 1`` frames between chunks;
+        the clip edges are replicate-padded with ``center_index`` lead
+        frames and ``future_frames`` tail frames (none in the causal
+        mode, ``temporal_center == T-1``).  At most
+        ``prefetch_depth + 1`` chunks are in flight."""
+        cfg = self.model_cfg
+        T = cfg.temporal_window
+        lead_pad = cfg.center_index
+        tail_pad = cfg.future_frames
+        n = batch_windows or self.pipeline_cfg.batch_windows
+        depth = max(self.pipeline_cfg.prefetch_depth, 1) + 1
+        inflight: list = []
+
+        def drain(limit: int):
+            while len(inflight) > limit:
+                yield inflight.pop(0).result()
+
+        carry: Optional[np.ndarray] = None  # trailing T-1 frames
+        first = True
+        for chunk in chunks:
+            if first:
+                lead = np.repeat(chunk[:1], lead_pad, axis=0)
+                chunk = np.concatenate([lead, chunk])
+                first = False
+            if carry is not None:
+                chunk = np.concatenate([carry, chunk])
+            while chunk.shape[0] >= n + T - 1:
+                inflight.append(self._dispatch_chunk(chunk[: n + T - 1]))
+                yield from drain(depth)
+                chunk = chunk[n:]
+            carry = chunk
+        if carry is not None:
+            # flush: replicate-pad the end, then emit remaining windows
+            tail = np.repeat(carry[-1:], tail_pad, axis=0)
+            buf = np.concatenate([carry, tail])
+            while buf.shape[0] >= T:
+                take = min(n, buf.shape[0] - (T - 1))
+                inflight.append(
+                    self._dispatch_chunk(buf[: take + T - 1], allow_short=True)
+                )
+                yield from drain(depth)
+                buf = buf[take:]
+        yield from drain(0)
+
+    def _dispatch_chunk(
+        self, frames: np.ndarray, allow_short: bool = False
+    ) -> _Pending:
+        """Dispatch one chunk without waiting for it."""
+        T = self.model_cfg.temporal_window
+        n_target = self.pipeline_cfg.batch_windows
+        n = frames.shape[0] - (T - 1)
+        if n < n_target and not allow_short:
+            raise ValueError("internal: short chunk without allow_short")
+        # pad short flush chunks to the configured chunk size
+        pad = 0
+        if n < n_target:
+            pad = n_target - n
+            frames = np.concatenate([frames, np.repeat(frames[-1:], pad, axis=0)])
+        src = _to_device(frames, self.device)
+        stabilized, flow = self._chunk_step(src)
+        return _Pending(stabilized, flow, pad, src)
+
+    def _border_crop(self, frames: np.ndarray) -> np.ndarray:
+        frac = self.pipeline_cfg.border_crop_frac
+        if frac <= 0:
+            return frames
+        _, h, w, _ = frames.shape
+        dy, dx = int(h * frac), int(w * frac)
+        return frames[:, dy : h - dy, dx : w - dx]
+
+
+def stabilize(
+    frames: np.ndarray,
+    model_cfg: Optional[ModelConfig] = None,
+    state_dict: Optional[Dict[str, torch.Tensor]] = None,
+    device=None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """One-shot API: clip in -> (stabilized clip, warp fields)."""
+    return Stabilizer(
+        model_cfg, state_dict=state_dict, device=device
+    ).stabilize_frames(frames)
+
+
+@torch.inference_mode()
+def apply_warp_fields(
+    frames: np.ndarray,
+    flows: np.ndarray,
+    model_cfg: Optional[ModelConfig] = None,
+    batch_frames: int = 8,
+    device=None,
+) -> np.ndarray:
+    """Re-apply exported warp fields to the original frames: the same
+    warp as ``stabilize_frames``, so the output is reproduced exactly.
+
+    Args:
+      frames: (T, H, W, 3) original clip, uint8 or [-1, 1] float32.
+      flows: (T, h, w, 2) normalized displacement fields (any model
+        resolution; upsampled to the frame size on the device).
+      model_cfg: warp semantics source (padding mode, align corners).
+      batch_frames: frames per device step.
+    Returns:
+      stabilized frames, (T, H, W, 3), in the input dtype.
+    """
+    if frames.shape[0] != flows.shape[0]:
+        raise ValueError(
+            f"frames ({frames.shape[0]}) and warp fields "
+            f"({flows.shape[0]}) must cover the same time steps"
+        )
+    device = resolve_device(device)
+    cfg = model_cfg or ModelConfig()
+    n = max(int(batch_frames), 1)
+    outs = []
+    for i in range(0, frames.shape[0], n):
+        f = _to_device(frames[i : i + n], device)
+        fl = _to_device(flows[i : i + n], device).to(torch.float32)
+        out = warp_image(
+            f, fl, padding_mode=cfg.padding_mode, align_corners=cfg.align_corners
+        )
+        outs.append(out.cpu().numpy())
+    return np.concatenate(outs)
