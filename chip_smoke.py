@@ -8,22 +8,37 @@ Phases, each printing one JSON line:
 1. device  - requires a CUDA card (exits non-zero without one).
 2. build   - builds the CUDA kernels from ``pwstablenet_tpu_torch/csrc``.
 3. kernels - each kernel against its plain PyTorch version on the card:
-             ``grid_sample_f32`` at (8,256,256,3) for every padding mode x
-             align_corners, plus a +-300-row vertical displacement at
-             720p (atol 1e-5); ``grid_sample_packed_u8`` at (8,720,1280,3)
-             with smooth random flows, border and reflection (+-1 code).
+             ``grid_sample_f32`` at (8,256,256,3) and, on a random and on
+             the identity grid, at the training path's (16,256,256,3), for
+             every padding mode x align_corners, plus a +-300-row vertical
+             displacement at 720p (atol 1e-5); ``grid_sample_packed_u8``
+             at (8,720,1280,3) with smooth random flows, border and
+             reflection (+-1 code);
+             ``grid_sample_grad_f32`` at (16,256,256,3) for every padding
+             mode x align_corners on a random and on the identity grid,
+             plus the +-300-row case at 720p (atol 2e-4, rtol 1e-4).
 4. main    - ``Stabilizer(ModelConfig(), PipelineConfig(batch_windows=8))``
              at full width, seeded random weights with small nonzero
-             heads, stabilizes a 24-frame 720p uint8 clip; both kernels
-             must have been launched.  Then one f32 chunk (TF32 off) on
-             the card and on the CPU with the same weights: flows MSE
-             <= 1e-3 and atol 1e-3, frames +-1 code.
-5. timing  - frames/s of ``stabilize_frames`` and ms per chunk (bf16,
-             720p), each kernel's time beside its bound, its plain
-             version's time and ``F.grid_sample``'s (kernel 1 only; the
-             port never calls it), and a ``torch.profiler`` pass over
-             one ``stabilize_frames`` call: the device's busy and idle
-             share and its time by kernel.
+             heads, stabilizes a 24-frame 720p uint8 clip; both forward
+             kernels must have been launched.  Then one f32 chunk (TF32
+             off) on the card and on the CPU with the same weights:
+             flows MSE <= 1e-3 and atol 1e-3, frames +-1 code.
+5. train   - ``train()`` with the full default ``ModelConfig()`` and
+             ``TrainConfig(batch_size=8)`` (bf16, 256x256) on the port's
+             synthetic batches for 5 steps: losses finite, G and D
+             changed, the d/dgrid kernel launched 3 times a step and the
+             f32 sample kernel launched.  Then one f32 step (TF32 off) at
+             a tiny config on the card and on the CPU from one state and
+             batch: metrics rtol 1e-4, parameters within 1e-6 on 99.9 %.
+6. timing  - frames/s of ``stabilize_frames`` and ms per chunk (bf16,
+             720p); ms per full-width train step, steps/s, windows/s and
+             peak memory; ``torch.profiler`` passes over one
+             ``stabilize_frames`` call and over 3 train steps (the
+             device's idle share and its time by kernel); each kernel's
+             time (``grid_sample_f32`` at both its shapes) beside its
+             bound, its plain version's time and one PyTorch call's
+             (``F.grid_sample``, ``grid_sampler_2d_backward``; the port
+             never calls them).
 
 Then the ``kernels`` line, the card's name and power limit from
 ``nvidia-smi``, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -37,6 +52,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -89,6 +105,40 @@ def time_launches(torch, fn, reps, flush):
     return statistics.median(times)
 
 
+def profile_device(torch, fn):
+    """Wall ms of ``fn()`` under ``torch.profiler``, the device's busy ms
+    (device-side events only: the aten ops that launch kernels carry the
+    same time again, and so do user annotations such as
+    ``Optimizer.step#Adam.step`` on the device timeline) and the top
+    device rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, annotations = [], []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = ev.self_device_time_total
+        if dev_us <= 0:
+            continue
+        if getattr(ev, "is_user_annotation", False):
+            annotations.append([ev.key[:90], dev_us / 1e3, ev.count])
+        else:
+            rows.append((dev_us, ev.key[:90], ev.count))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": (1.0 - busy_ms / wall_ms) if rows else None,
+            "top_device_ms": [[k, us / 1e3, c] for us, k, c in rows[:12]],
+            "annotations_not_counted_ms": annotations}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -123,12 +173,22 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     img = torch.rand(8, 256, 256, 3, device="cuda", generator=gen)
     grid = torch.rand(8, 256, 256, 2, device="cuda", generator=gen) * 2.4 - 1.2
+    # the training path's shapes: 2 x batch 8 windows at 256x256
+    gimg = torch.rand(16, 256, 256, 3, device="cuda", generator=gen)
+    gcot = torch.randn(16, 256, 256, 3, device="cuda", generator=gen)
+    ggrid = torch.rand(16, 256, 256, 2, device="cuda", generator=gen) * 2.4 - 1.2
+    from pwstablenet_tpu_torch.ops.warp import identity_grid
+
+    ident = identity_grid(256, 256, device="cuda")[None].expand(16, -1, -1, -1).contiguous()
     f32_cases = {}
     for mode in ("border", "zeros", "reflection"):
         for ac in (True, False):
-            out = K.grid_sample_f32(img, grid, mode, ac)
-            ref = K.grid_sample_f32_plain(img, grid, mode, ac)
-            f32_cases[f"{mode}/ac={ac}"] = (out - ref).abs().max().item()
+            for key, im, gr in ((f"{mode}/ac={ac}", img, grid),
+                                (f"{mode}/ac={ac}/train", gimg, ggrid),
+                                (f"{mode}/ac={ac}/train/identity", gimg, ident)):
+                out = K.grid_sample_f32(im, gr, mode, ac)
+                ref = K.grid_sample_f32_plain(im, gr, mode, ac)
+                f32_cases[key] = (out - ref).abs().max().item()
     tall = torch.rand(2, 720, 1280, 3, device="cuda", generator=gen)
     tgrid = smooth_grid(torch, 2, 720, 1280, 0.1, gen)
     rows = 300.0 / (0.5 * (720 - 1))          # 300 rows, normalized
@@ -157,6 +217,29 @@ def main() -> int:
     u8_err = max(c["max_code_diff"] for c in u8_cases.values())
     emit("kernel_packed_u8", max_abs_err=u8_err, cases=u8_cases, atol=1)
     check(u8_err <= 1, f"grid_sample_packed_u8 vs plain: {u8_cases}")
+
+    grad_cases = {}
+
+    def grad_case(key, im, gr, ct, mode, ac=True):
+        out = K.grid_sample_grad_f32(im, gr, ct, mode, ac)
+        ref = K.grid_sample_grad_f32_plain(im, gr, ct, mode, ac)
+        excess = ((out - ref).abs() - 1e-4 * ref.abs()).max().item()
+        grad_cases[key] = {"max_abs_err": (out - ref).abs().max().item(),
+                           "max_excess_over_rtol": excess,
+                           "ref_abs_max": ref.abs().max().item()}
+
+    for mode in ("border", "zeros", "reflection"):
+        for ac in (True, False):
+            grad_case(f"{mode}/ac={ac}", gimg, ggrid, gcot, mode, ac)
+            grad_case(f"{mode}/ac={ac}/identity", gimg, ident, gcot, mode, ac)
+    tcot = torch.randn(2, 720, 1280, 3, device="cuda", generator=gen)
+    for mode in ("border", "zeros"):
+        grad_case(f"{mode}/+-300rows", tall, tgrid, tcot, mode)
+    torch.cuda.synchronize()
+    grad_err = max(c["max_abs_err"] for c in grad_cases.values())
+    emit("kernel_grad", max_abs_err=grad_err, cases=grad_cases, atol=2e-4, rtol=1e-4)
+    check(all(c["max_excess_over_rtol"] <= 2e-4 for c in grad_cases.values()),
+          f"grid_sample_grad_f32 vs plain: {grad_cases}")
 
     # ---- 4. main path ----------------------------------------------
     cfg = ModelConfig()
@@ -188,7 +271,9 @@ def main() -> int:
     check(flow_max > 1e-4, f"flows nonzero ({flow_max})")
     changed = float((out != clip).mean())
     check(changed > 0.01, f"warp changed the frames ({changed})")
-    check(all(v > 0 for v in launches.values()), f"kernel launches {launches}")
+    # the inference path runs the two forward kernels, not the gradient
+    check(launches["grid_sample_f32"] > 0 and launches["grid_sample_packed_u8"] > 0
+          and launches["grid_sample_grad_f32"] == 0, f"kernel launches {launches}")
     emit("main", frames=list(out.shape), flows=list(flows.shape), seconds=main_s,
          launches=launches, flow_abs_max=flow_max, share_pixels_changed=changed)
 
@@ -217,7 +302,7 @@ def main() -> int:
     check(code <= 1, f"card vs CPU frames: {code} codes")
     del gpu, cpu
 
-    # ---- 5. timings --------------------------------------------------
+    # ---- 5. inference timings --------------------------------------
     frames_dev = torch.from_numpy(clip[: 8 + cfg.temporal_window - 1]).cuda()
     chunk_ms = []
     for i in range(13):
@@ -246,42 +331,156 @@ def main() -> int:
          frame_size=[fh, fw])
 
     # device busy share of stabilize_frames, and device time by kernel
-    from torch.profiler import ProfilerActivity, profile
+    emit("profile", **profile_device(torch, lambda: st.stabilize_frames(clip)))
+    del st
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    # ---- 6. training path --------------------------------------------
+    from pwstablenet_tpu_torch.config import TrainConfig
+    from pwstablenet_tpu_torch.data.synthetic import make_train_batch
+    from pwstablenet_tpu_torch.train.loop import (
+        batch_to_device, synthetic_batch_iterator, train,
+    )
+    from pwstablenet_tpu_torch.train.state import create_train_state, feeds_a_norm
+    from pwstablenet_tpu_torch.train.step import make_train_step
+
+    train_steps = 5
+    tcfg = TrainConfig(batch_size=8, log_every=1, seed=SEED)
+    init = create_train_state(cfg, tcfg, "cuda")
+    before = {m: {n: p.detach().clone() for n, p in getattr(init, m).named_parameters()}
+              for m in ("g", "d")}
+    del init
+    logged = []
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        tcfg = dataclasses.replace(tcfg, checkpoint_dir=ckpt_dir)
+        batches = synthetic_batch_iterator(cfg, tcfg, seed=SEED)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
         t0 = time.perf_counter()
-        st.stabilize_frames(clip)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only (kernels, copies): the aten ops that launch
-    # them carry the same time again
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = ev.self_device_time_total
-        if dev_us > 0:
-            rows.append((dev_us, ev.key[:90], ev.count))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    emit("profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
-         device_idle_share=(1.0 - busy_ms / wall_ms) if rows else None,
-         top_device_ms=[[k, us / 1e3, c] for us, k, c in rows[:12]])
+        tstate = train(cfg, tcfg, batches, max_steps=train_steps, log_fn=logged.append)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = dict(K.LAUNCHES)
+        batches.close()  # stop the batch-making thread
+    check(len(logged) == train_steps and tstate.step == train_steps, f"steps {tstate.step}")
+    check(all(np.isfinite(v) for m in logged for v in m.values()), f"metrics {logged}")
+    changed = {m: sum(not torch.equal(before[m][n], p)
+                      for n, p in getattr(tstate, m).named_parameters())
+               for m in ("g", "d")}
+    check(changed["d"] == len(before["d"]) and changed["g"] > 0
+          and not torch.equal(before["g"]["stage1.head.weight"], tstate.g.stage1.head.weight),
+          f"parameters changed: {changed}")
+    check(train_launches["grid_sample_grad_f32"] == 3 * train_steps
+          and train_launches["grid_sample_f32"] > 0
+          and train_launches["grid_sample_packed_u8"] == 0,
+          f"train kernel launches {train_launches}")
+    del before
+    emit("train", steps=train_steps, seconds=train_s, launches=train_launches,
+         tensors_changed=changed, n_tensors={"g": len(dict(tstate.g.named_parameters())),
+                                             "d": len(dict(tstate.d.named_parameters()))},
+         batch_size=tcfg.batch_size, compute_dtype=cfg.compute_dtype,
+         first=logged[0], last=logged[-1])
+
+    # one f32 step (TF32 off) at a tiny config on the card and on the
+    # CPU, from one state and batch
+    tiny = ModelConfig(temporal_window=3, num_levels=4, base_features=8, max_features=16,
+                       model_resolution=(32, 32), num_stages=2, disc_num_layers=2,
+                       feat_channels=(8, 16), compute_dtype="float32")
+    ttcfg = TrainConfig(batch_size=2, num_epochs=1, steps_per_epoch=10)
+    tiny_batch = make_train_batch(2, 32, 32, tiny.temporal_window, seed=3)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pair = {}
+    for dev in ("cpu", "cuda"):
+        st_ = create_train_state(tiny, ttcfg, dev)
+        hgen = torch.Generator().manual_seed(SEED + 2)
+        with torch.no_grad():  # nonzero heads: grids off the identity
+            for s_ in range(tiny.num_stages):
+                head = getattr(st_.g, f"stage{s_}").head
+                head.weight.copy_(torch.randn(head.weight.shape, generator=hgen) * 1e-2)
+        m_ = make_train_step(tiny, ttcfg)(st_, batch_to_device(tiny_batch, torch.device(dev)))
+        pair[dev] = (st_, {k: float(v) for k, v in m_.items()})
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    rel = {k: abs(pair["cuda"][1][k] - v) / max(abs(v), 1e-12) for k, v in pair["cpu"][1].items()}
+    diffs, free = [], []
+    for m in ("g", "d"):
+        c_sd = dict(getattr(pair["cpu"][0], m).named_parameters())
+        for n, p in getattr(pair["cuda"][0], m).named_parameters():
+            d_ = (p.detach().cpu() - c_sd[n].detach()).abs().flatten()
+            diffs.append(d_)
+            if not feeds_a_norm(n, c_sd):
+                free.append(d_)
+    pdiff = torch.cat(diffs)
+    share = float((torch.cat(free) <= 1e-6).double().mean())
+    emit("card_vs_cpu_train_f32", metrics_max_rel_diff=max(rel.values()), metrics_rel=rel,
+         param_max_abs_diff=float(pdiff.max()), param_share_within_1em6=share)
+    check(max(rel.values()) <= 1e-4, f"card vs CPU train metrics: {rel}")
+    check(float(pdiff.max()) <= 2 * ttcfg.lr_g * (1 + 1e-3) and share >= 0.999,
+          f"card vs CPU train params: max {float(pdiff.max())}, share {share}")
+    del pair
+
+    # ---- 7. training timings ----------------------------------------
+    # ms per full-width train step on one device batch
+    step_fn = make_train_step(cfg, tcfg)
+    dev_batch = batch_to_device(
+        make_train_batch(tcfg.batch_size, 256, 256, cfg.temporal_window, seed=SEED + 7),
+        torch.device("cuda"))
+    for _ in range(2):
+        step_fn(tstate, dev_batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(7):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        step_fn(tstate, dev_batch)
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(step_ms)
+    windows = 2 * tcfg.batch_size
+    emit("train_timing", step_ms=med, step_ms_each=step_ms, steps_per_s=1e3 / med,
+         windows_per_step=windows, windows_per_s=windows * 1e3 / med,
+         peak_memory_gb=peak / 1e9, compute_dtype=cfg.compute_dtype,
+         model_resolution=list(cfg.model_resolution))
+    emit("train_profile", steps=3,
+         **profile_device(torch, lambda: [step_fn(tstate, dev_batch) for _ in range(3)]))
+    del tstate, step_fn, dev_batch
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     # the inter-stage warp's data: identity plus a smooth flow
     sgrid = smooth_grid(torch, 8, 256, 256, 0.2, gen)
     img_nchw = img.permute(0, 3, 1, 2).contiguous()
+    # the loss warps' data: identity plus a smooth flow, at (16,256,256,3)
+    sgrid16 = smooth_grid(torch, 16, 256, 256, 0.2, gen)
+    gimg_nchw = gimg.permute(0, 3, 1, 2).contiguous()
+    gcot_nchw = gcot.permute(0, 3, 1, 2).contiguous()
     k1 = {
         "ms": time_launches(torch, lambda: K.grid_sample_f32(img, sgrid), 50, flush),
         "plain_ms": time_launches(torch, lambda: K.grid_sample_f32_plain(img, sgrid), 10, flush),
         "library_ms": time_launches(torch, lambda: F.grid_sample(
             img_nchw, sgrid, "bilinear", "border", True), 50, flush),
+        # the training path's launches run at (16,256,256,3)
+        "train_ms": time_launches(torch, lambda: K.grid_sample_f32(gimg, sgrid16), 50, flush),
+        "train_plain_ms": time_launches(
+            torch, lambda: K.grid_sample_f32_plain(gimg, sgrid16), 10, flush),
+        "train_library_ms": time_launches(torch, lambda: F.grid_sample(
+            gimg_nchw, sgrid16, "bilinear", "border", True), 50, flush),
     }
     k2 = {
         "ms": time_launches(torch, lambda: K.grid_sample_packed_u8(u8, ugrid), 50, flush),
         "plain_ms": time_launches(torch, lambda: K.grid_sample_packed_u8_plain(u8, ugrid), 5, flush),
         "library_ms": None,
+    }
+    k3 = {
+        "ms": time_launches(torch, lambda: K.grid_sample_grad_f32(gimg, sgrid16, gcot), 50, flush),
+        "plain_ms": time_launches(
+            torch, lambda: K.grid_sample_grad_f32_plain(gimg, sgrid16, gcot), 5, flush),
+        # a yardstick only: its tie semantics differ, and the port never calls it
+        "library_ms": time_launches(torch, lambda: torch.ops.aten.grid_sampler_2d_backward(
+            gcot_nchw, gimg_nchw, sgrid16, 0, 1, True, [False, True]), 50, flush),
     }
 
     def bound(nbytes, nflops):
@@ -293,16 +492,26 @@ def main() -> int:
     # per pixel: read grid (8 B) and 4 taps of C f32, write C f32; ~20
     # flops of coordinates and weights plus 7 per channel
     b1, by1 = bound(px1 * (8 + 3 * 4 + 3 * 4), px1 * (20 + 7 * 3))
+    px1t = gimg.shape[0] * gimg.shape[1] * gimg.shape[2]
+    b1t, _ = bound(px1t * (8 + 3 * 4 + 3 * 4), px1t * (20 + 7 * 3))
     px2 = u8.shape[0] * u8.shape[1] * u8.shape[2]
     b2, by2 = bound(px2 * (8 + 3 + 3), px2 * (20 + 9 * 3))
+    px3 = gimg.shape[0] * gimg.shape[1] * gimg.shape[2]
+    # per pixel: read grid (8 B), 4 taps and the cotangent of C f32,
+    # write 2 f32; ~25 flops of coordinates and scales plus 14 per channel
+    b3, by3 = bound(px3 * (8 + 3 * 4 + 3 * 4 + 8), px3 * (25 + 14 * 3))
     kernels = [
         {"name": "grid_sample_f32", "route": "cuda",
          "source": "pwstablenet_tpu_torch/csrc/grid_sample.cu",
          "replaces": "pwstablenet_tpu/kernels/grid_sample_pallas.py:614 (grid_sample_pallas)",
-         "launches": launches["grid_sample_f32"], "max_abs_err": f32_err,
+         "launches": launches["grid_sample_f32"],
+         "launches_train": train_launches["grid_sample_f32"], "max_abs_err": f32_err,
          "ms": k1["ms"], "kernel_ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": b1, "bound_by": by1, "library_ms": k1["library_ms"],
-         "shape": list(img.shape)},
+         "shape": list(img.shape),
+         "train_shape": list(gimg.shape), "train_ms": k1["train_ms"],
+         "train_plain_ms": k1["train_plain_ms"], "train_bound_ms": b1t,
+         "train_library_ms": k1["train_library_ms"]},
         {"name": "grid_sample_packed_u8", "route": "cuda",
          "source": "pwstablenet_tpu_torch/csrc/grid_sample.cu",
          "replaces": "pwstablenet_tpu/kernels/grid_sample_pallas.py:714 (grid_sample_pallas_packed)",
@@ -310,6 +519,15 @@ def main() -> int:
          "ms": k2["ms"], "kernel_ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": b2, "bound_by": by2, "library_ms": k2["library_ms"],
          "shape": list(u8.shape)},
+        {"name": "grid_sample_grad_f32", "route": "cuda",
+         "source": "pwstablenet_tpu_torch/csrc/grid_sample.cu",
+         "replaces": "pwstablenet_tpu/kernels/grid_sample_pallas.py:805 (grid_sample_grad_pallas)",
+         "launches": train_launches["grid_sample_grad_f32"],
+         "launches_per_train_step": train_launches["grid_sample_grad_f32"] / train_steps,
+         "max_abs_err": grad_err,
+         "ms": k3["ms"], "kernel_ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": b3, "bound_by": by3, "library_ms": k3["library_ms"],
+         "shape": list(gimg.shape)},
     ]
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,7 +10,11 @@ Layout
 - ``config``    model and pipeline configuration (a copy of the reference's)
 - ``ops``       pixels, plain grid sample (the kernels' oracle), warps
 - ``kernels``   hand-written CUDA kernels (``csrc/``), wrappers, plain versions
-- ``models``    the cascaded UNet generator (``nn.Module``s)
-- ``interop``   weights from the JAX package's parameter tree
+- ``models``    the cascaded UNet generator, the PatchGAN discriminator
+                and the frozen feature extractor (``nn.Module``s)
+- ``interop``   weights from the JAX package's parameter trees
 - ``pipeline``  streaming inference: clip in -> stabilized clip + warp fields
+- ``data``      synthetic training batches, host-side prefetch
+- ``train``     losses, state, the adversarial train step, checkpoints,
+                the training loop
 """

@@ -1,9 +1,9 @@
-"""Typed configuration for the inference path.
+"""Typed configuration.
 
-A copy of the JAX package's ``ModelConfig`` and ``PipelineConfig``
-(same fields, defaults and validation), kept here so the port depends on
-nothing of the JAX package.  Training, data, and mesh configuration
-arrive with the slices that use them.
+A copy of the JAX package's ``ModelConfig``, ``TrainConfig``,
+``MeshConfig`` and ``PipelineConfig`` (same fields, defaults and
+validation), kept here so the port depends on nothing of the JAX
+package.  Data configuration arrives with the slice that uses it.
 """
 
 from __future__ import annotations
@@ -113,6 +113,74 @@ class ModelConfig:
     def future_frames(self) -> int:
         """Lookahead frames needed per output frame (0 = causal)."""
         return self.temporal_window - 1 - self.center_index
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Adversarial training."""
+
+    batch_size: int = 8               # global
+    num_epochs: int = 40
+    steps_per_epoch: int = 1000
+
+    # Adam, pix2pix-style
+    lr_g: float = 2e-4
+    lr_d: float = 2e-4
+    adam_b1: float = 0.5
+    adam_b2: float = 0.999
+    # linear decay to 0 over the second half of training
+    lr_decay_start_frac: float = 0.5
+
+    # loss weights; the adversarial weight is 1
+    w_pixel: float = 100.0
+    w_feature: float = 10.0
+    w_temporal: float = 10.0
+    w_warp_reg: float = 1.0
+    # per-stage supervision weights, later stages higher
+    stage_weights: Tuple[float, ...] = (0.5, 1.0)
+
+    gan_loss: str = "lsgan"           # lsgan | vanilla | hinge
+
+    # pixel-term form: "l1" (the reference loss), "mean_matched" (a
+    # per-sample/channel brightness gain divided out before the L1) or
+    # "gradient" (L1 on spatial finite differences); see
+    # train.losses.pixel_loss_photometric
+    pixel_loss_mode: str = "l1"
+
+    # temporal-consistency form: "raw" penalizes |out_t - out_{t+1}|;
+    # "compensated" penalizes |d(out) - d(gt)|
+    temporal_mode: str = "compensated"
+
+    # micro-batch gradient accumulation: one G and one D update per
+    # step from gradients averaged over grad_accum_steps micro-batches
+    grad_accum_steps: int = 1
+
+    # exponential moving average of generator params (0 = off)
+    ema_decay: float = 0.0
+
+    seed: int = 0
+    log_every: int = 50
+    # run the eval hook every N steps; 0 = only at the end of training
+    eval_every: int = 0
+    # optional JSONL scalar log file in addition to stdout; "" = stdout only
+    scalar_log_path: str = ""
+    # TensorBoard event-file directory; "" = disabled (not ported yet)
+    tb_log_dir: str = ""
+    checkpoint_every: int = 1000
+    checkpoint_dir: str = "checkpoints"
+    keep_checkpoints: int = 3
+    debug_nans: bool = False
+    # debug flag: raise at this step to exercise resume
+    fault_inject_step: int = -1
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh for data-parallel training (one device until
+    ``parallel/`` is ported)."""
+
+    data_axis: str = "data"
+    num_devices: int = -1             # -1 = all local devices
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,10 +1,13 @@
-"""Weights from the JAX package's generator into the port, and back.
+"""Weights from the JAX package's models into the port, and back.
 
 ``jax_params_to_state_dict`` takes the flax ``CascadedGenerator``
 parameter tree as nested dicts of numpy arrays (no JAX needed) and
-returns a ``state_dict`` for ``models.CascadedGenerator``.  The port's
-modules carry the flax names (``stage0.down1.conv``, ``stage1.up2.deconv``,
-``stage0.head_up``, ...), so only the leaves change:
+returns a ``state_dict`` for ``models.CascadedGenerator``;
+``tree_to_state_dict`` does the same for the ``PatchDiscriminator`` and
+the ``FeatureExtractor`` (convs and norm scales only, no stage check).
+The port's modules carry the flax names (``stage0.down1.conv``,
+``stage1.up2.deconv``, ``stage0.head_up``, ``conv1``, ``norm1``,
+``score``, ``conv0a``, ...), so only the leaves change:
 
 - conv ``kernel`` (kh, kw, I, O) -> ``weight`` (O, I, kh, kw);
 - transposed-conv ``kernel`` (kh, kw, I, O) -> ``weight`` (I, O, kh, kw),
@@ -13,7 +16,8 @@ modules carry the flax names (``stage0.down1.conv``, ``stage1.up2.deconv``,
   with an unflipped kernel;
 - norm ``scale`` -> ``weight``; ``bias`` stays ``bias``.
 
-``state_dict_to_jax_params`` is the inverse.
+``state_dict_to_jax_params`` and ``state_dict_to_tree`` are the
+inverses.
 """
 
 from __future__ import annotations
@@ -54,11 +58,11 @@ def _check_stages(names, cfg: ModelConfig) -> None:
         )
 
 
-def jax_params_to_state_dict(params, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """flax ``CascadedGenerator`` params (nested dicts of arrays) ->
-    the port's ``state_dict`` (float32 CPU tensors)."""
+def tree_to_state_dict(params) -> Dict[str, torch.Tensor]:
+    """A flax parameter tree (nested dicts of arrays) -> a ``state_dict``
+    of float32 CPU tensors.  Any of the three models; the generator's
+    entry point, ``jax_params_to_state_dict``, adds its stage check."""
     tree = params.get("params", params)
-    _check_stages(tree.keys(), cfg)
     sd: Dict[str, torch.Tensor] = {}
 
     def walk(node, prefix, parent):
@@ -79,9 +83,9 @@ def jax_params_to_state_dict(params, cfg: ModelConfig) -> Dict[str, torch.Tensor
     return sd
 
 
-def state_dict_to_jax_params(state_dict, cfg: ModelConfig) -> Dict:
-    """Inverse of ``jax_params_to_state_dict``: the port's ``state_dict``
-    -> ``{"params": nested dicts of numpy arrays}``."""
+def state_dict_to_tree(state_dict) -> Dict:
+    """Inverse of ``tree_to_state_dict``: a ``state_dict`` ->
+    ``{"params": nested dicts of numpy arrays}``."""
     tree: Dict = {}
     for key, value in state_dict.items():
         path = key.split(".")
@@ -96,5 +100,19 @@ def state_dict_to_jax_params(state_dict, cfg: ModelConfig) -> Dict:
         for p in path[:-1]:
             node = node.setdefault(p, {})
         node[leaf] = np.ascontiguousarray(a)
-    _check_stages(tree.keys(), cfg)
     return {"params": tree}
+
+
+def jax_params_to_state_dict(params, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """flax ``CascadedGenerator`` params (nested dicts of arrays) ->
+    the port's ``state_dict`` (float32 CPU tensors)."""
+    _check_stages(params.get("params", params).keys(), cfg)
+    return tree_to_state_dict(params)
+
+
+def state_dict_to_jax_params(state_dict, cfg: ModelConfig) -> Dict:
+    """Inverse of ``jax_params_to_state_dict``: the port's ``state_dict``
+    -> ``{"params": nested dicts of numpy arrays}``."""
+    tree = state_dict_to_tree(state_dict)
+    _check_stages(tree["params"].keys(), cfg)
+    return tree

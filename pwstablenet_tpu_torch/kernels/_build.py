@@ -36,6 +36,8 @@ _SIGNATURES = {
     "pwst_grid_sample_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # image, grid, out, B, H, W, Ho, Wo, align_corners, stream
     "pwst_grid_sample_packed_u8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # image, grid, cot, out, B, H, W, C, Ho, Wo, zeros, align_corners, stream
+    "pwst_grid_sample_grad_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

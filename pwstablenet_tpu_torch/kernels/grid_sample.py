@@ -1,17 +1,21 @@
 """Hand-written CUDA grid-sample kernels, their wrappers and their plain
 PyTorch versions.
 
-Two kernels (``csrc/grid_sample.cu``) replace the forward Pallas TPU
-kernels of ``pwstablenet_tpu/kernels/grid_sample_pallas.py``:
+Three kernels (``csrc/grid_sample.cu``) replace the Pallas TPU kernels
+of ``pwstablenet_tpu/kernels/grid_sample_pallas.py``:
 
 - ``grid_sample_f32`` (replaces ``grid_sample_pallas``): NHWC f32 image,
   f32 grid, border or zeros padding, either ``align_corners``.
 - ``grid_sample_packed_u8`` (replaces ``grid_sample_pallas_packed``):
   uint8 RGB in, uint8 RGB out, border padding; each channel blends in
   f32 on the 0..255 scale, rounds half to even and saturates.
+- ``grid_sample_grad_f32`` (replaces ``grid_sample_grad_pallas``):
+  d/dgrid of ``sum(cot * grid_sample_f32(image, grid))``, the backward
+  of ``ops.warp.warp_image_fused``; no image gradient.
 
 Reflection padding is a grid pre-reflection (``_reflect_grid``)
-followed by a border sample, for both kernels.
+followed by a border sample, for all three kernels; the gradient is
+then multiplied by the reflection's sign ``dsign``.
 
 Each wrapper runs its plain version when the tensors lie on the CPU,
 and launches its kernel on a CUDA tensor: there is no fallback between
@@ -29,7 +33,9 @@ from pwstablenet_tpu_torch.kernels._build import library
 from pwstablenet_tpu_torch.ops.grid_sample import _gather, _unnormalize
 from pwstablenet_tpu_torch.ops.grid_sample import grid_sample as _oracle
 
-LAUNCHES = {"grid_sample_f32": 0, "grid_sample_packed_u8": 0}
+LAUNCHES = {
+    "grid_sample_f32": 0, "grid_sample_packed_u8": 0, "grid_sample_grad_f32": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -222,3 +228,114 @@ def grid_sample_packed_u8(image, grid, padding_mode="border", align_corners=True
         )
     LAUNCHES["grid_sample_packed_u8"] += 1
     return out
+
+
+# ---------------------------------------------------------------------
+# d/dgrid of the f32 sample
+# ---------------------------------------------------------------------
+
+
+def _check_cot(cot, image, grid):
+    if cot.dtype != torch.float32:
+        raise ValueError(f"cotangent must be float32, got {cot.dtype}")
+    expect = (*grid.shape[:-1], image.shape[-1])
+    if tuple(cot.shape) != expect:
+        raise ValueError(
+            f"cotangent must have shape {expect}, got {tuple(cot.shape)}"
+        )
+    if cot.device != grid.device:
+        raise ValueError("cotangent and grid lie on different devices")
+
+
+def _grad_grid(grid, h, w, padding_mode, align_corners):
+    """(grid to differentiate at, its padding mode, dsign or None)."""
+    if padding_mode not in ("border", "zeros", "reflection"):
+        raise ValueError(
+            f"padding_mode must be one of ('border', 'zeros', 'reflection'), "
+            f"got {padding_mode!r}"
+        )
+    if padding_mode == "reflection":
+        rgrid, dsign = _reflect_grid(grid, h, w, align_corners)
+        return rgrid.contiguous(), "border", dsign
+    return grid, padding_mode, None
+
+
+def grid_sample_grad_f32_plain(
+    image, grid, cot, padding_mode="border", align_corners=True
+):
+    """Plain version of ``grid_sample_grad_f32``: the kernel's steps in
+    tensor ops, in its order (not autograd of the sampler).
+
+    The semantics are the TPU kernel's: taps are clamped into the image
+    and masked per corner in ``zeros`` mode; in ``border`` mode the tap
+    row below the last row reads 0 and the gradient is zeroed where the
+    unclipped coordinate lies outside the closed ``[0, size-1]`` (kept
+    on the boundary itself)."""
+    _, h, w, c = image.shape
+    grid, mode, dsign = _grad_grid(grid, h, w, padding_mode, align_corners)
+    zeros = mode == "zeros"
+    ux = _unnormalize(grid[..., 0], w, align_corners)
+    uy = _unnormalize(grid[..., 1], h, align_corners)
+    x, y = ux, uy
+    if not zeros:
+        x = torch.clamp(x, 0.0, w - 1)
+        y = torch.clamp(y, 0.0, h - 1)
+    x0f = torch.floor(x)
+    y0f = torch.floor(y)
+    fx = x - x0f
+    fy = y - y0f
+    x0 = x0f.to(torch.int64)
+    y0 = y0f.to(torch.int64)
+    x1 = x0 + 1
+    y1 = y0 + 1
+    vx0, vx1 = (x0 >= 0) & (x0 < w), (x1 >= 0) & (x1 < w)
+    vy0, vy1 = (y0 >= 0) & (y0 < h), (y1 >= 0) & (y1 < h)
+    if zeros:
+        masks = (vy0 & vx0, vy0 & vx1, vy1 & vx0, vy1 & vx1)
+    else:
+        masks = (None, None, vy1, vy1)
+    taps = []
+    for (iy, ix), m in zip(((y0, x0), (y0, x1), (y1, x0), (y1, x1)), masks):
+        a = _gather(image, iy.clamp(0, h - 1), ix.clamp(0, w - 1))
+        if m is not None:
+            a = torch.where(m[..., None], a, torch.zeros_like(a))
+        taps.append(a)
+    a00, a01, a10, a11 = taps
+    dgx = torch.zeros_like(fx)
+    dgy = torch.zeros_like(fy)
+    for ch in range(c):
+        gc = cot[..., ch]
+        dgx = dgx + gc * ((1.0 - fy) * (a01[..., ch] - a00[..., ch])
+                          + fy * (a11[..., ch] - a10[..., ch]))
+        dgy = dgy + gc * ((1.0 - fx) * (a10[..., ch] - a00[..., ch])
+                          + fx * (a11[..., ch] - a01[..., ch]))
+    if not zeros:
+        dgx = torch.where((ux >= 0.0) & (ux <= w - 1), dgx, torch.zeros_like(dgx))
+        dgy = torch.where((uy >= 0.0) & (uy <= h - 1), dgy, torch.zeros_like(dgy))
+    sx, sy = (0.5 * (w - 1), 0.5 * (h - 1)) if align_corners else (0.5 * w, 0.5 * h)
+    out = torch.stack([dgx * sx, dgy * sy], dim=-1)
+    return out if dsign is None else out * dsign
+
+
+def grid_sample_grad_f32(image, grid, cot, padding_mode="border", align_corners=True):
+    """d/dgrid of ``sum(cot * grid_sample_f32(image, grid))``: image
+    (B,H,W,C) f32, grid (B,Ho,Wo,2) f32, cot (B,Ho,Wo,C) f32 ->
+    (B,Ho,Wo,2) f32."""
+    _check(image, grid, torch.float32)
+    _check_cot(cot, image, grid)
+    if _on_cpu(image, grid):
+        return grid_sample_grad_f32_plain(image, grid, cot, padding_mode, align_corners)
+    b, h, w, c = image.shape
+    _, ho, wo, _ = grid.shape
+    grid, mode, dsign = _grad_grid(grid, h, w, padding_mode, align_corners)
+    _check_contiguous(image, grid, cot)
+    out = torch.empty((b, ho, wo, 2), dtype=torch.float32, device=image.device)
+    err = library().pwst_grid_sample_grad_f32(
+        image.data_ptr(), grid.data_ptr(), cot.data_ptr(), out.data_ptr(),
+        b, h, w, c, ho, wo, int(mode == "zeros"), int(bool(align_corners)),
+        torch.cuda.current_stream(image.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"grid_sample_grad_f32 launch failed: CUDA error {err}")
+    LAUNCHES["grid_sample_grad_f32"] += 1
+    return out if dsign is None else out * dsign

@@ -1,1 +1,1 @@
-"""Generator modules."""
+"""Generator, discriminator and feature-extractor modules."""

@@ -28,6 +28,16 @@ def lecun_normal_(
                               generator=generator)
 
 
+def init_convs_(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """flax's initialisation of every ``nn.Conv2d`` below ``module``:
+    lecun-normal kernels and zero biases (norm scales start at 1, biases
+    at 0)."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            lecun_normal_(m.weight, m.weight[0].numel(), generator)
+            nn.init.zeros_(m.bias)
+
+
 def conv2d(m: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return F.conv2d(
         x.to(dtype), m.weight.to(dtype), m.bias.to(dtype), m.stride, m.padding
@@ -143,8 +153,20 @@ class DownBlock(nn.Module):
         return F.leaky_relu(x, self.leaky_slope)
 
 
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale
+    by ``1 / (1 - rate)``.  The mask is drawn from ``generator`` (on
+    ``x``'s device), never from the global RNG."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class UpBlock(nn.Module):
-    """Stride-2 4x4 transposed conv -> norm -> (dropout) -> ReLU."""
+    """Stride-2 4x4 transposed conv -> norm -> (dropout) -> ReLU.
+
+    Dropout runs only when the caller passes a ``generator`` (the train
+    step does), as flax's runs only when ``deterministic=False``."""
 
     def __init__(self, in_channels: int, features: int, norm: str = "instance",
                  use_norm: bool = True, dropout_rate: float = 0.0,
@@ -152,13 +174,14 @@ class UpBlock(nn.Module):
         super().__init__()
         self.deconv = make_deconv_2x(in_channels, features)
         self.norm = make_norm(norm, features, dtype) if use_norm else None
-        self.dropout = nn.Dropout(dropout_rate) if dropout_rate > 0 else None
+        self.dropout_rate = dropout_rate
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = conv_transpose2d(self.deconv, x, self.dtype)
         if self.norm is not None:
             x = self.norm(x)
-        if self.dropout is not None:
-            x = self.dropout(x)
+        if self.dropout_rate > 0 and generator is not None:
+            x = dropout(x, self.dropout_rate, generator)
         return F.relu(x)

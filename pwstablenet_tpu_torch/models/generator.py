@@ -50,14 +50,21 @@ class CascadedGenerator(nn.Module):
         c0 = self.cfg.center_index * self.cfg.in_channels
         return stack[..., c0 : c0 + self.cfg.in_channels]
 
-    def forward(self, stack: torch.Tensor) -> List[torch.Tensor]:
+    def forward(
+        self, stack: torch.Tensor,
+        dropout_generator: Optional[torch.Generator] = None,
+    ) -> List[torch.Tensor]:
+        """Dropout (``ModelConfig.use_dropout``) runs only when a
+        ``dropout_generator`` on the stack's device is given."""
         cfg = self.cfg
         flows: List[torch.Tensor] = []
         x = stack
         feats = None
         for s in range(cfg.num_stages):
             extra = feats if (s > 0 and cfg.interstage in ("features", "both")) else None
-            flow, feats = getattr(self, f"stage{s}")(x.permute(0, 3, 1, 2), extra)
+            flow, feats = getattr(self, f"stage{s}")(
+                x.permute(0, 3, 1, 2), extra, dropout_generator
+            )
             flow = flow.permute(0, 2, 3, 1)
             if s > 0:
                 flow = flows[-1] + flow  # residual refinement

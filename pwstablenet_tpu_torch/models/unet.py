@@ -106,9 +106,11 @@ class StageUNet(nn.Module):
     def forward(
         self, x: torch.Tensor,
         extra_skips: Optional[Sequence[torch.Tensor]] = None,
+        dropout_generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """x: (B, C, H, W).  Returns (flow (B, 2, H, W) float32 in
-        normalized grid units, decoder features coarse -> fine)."""
+        normalized grid units, decoder features coarse -> fine).
+        Dropout runs only with a ``dropout_generator``."""
         cfg = self.cfg
         dt = self.dtype
         L = cfg.num_levels
@@ -127,7 +129,7 @@ class StageUNet(nn.Module):
             if extra_skips is not None and 0 < level <= len(extra_skips):
                 inputs.append(extra_skips[level - 1].to(dt))
             x = torch.cat(inputs, dim=1) if len(inputs) > 1 else x
-            x = getattr(self, f"up{level}")(x)
+            x = getattr(self, f"up{level}")(x, dropout_generator)
             decoder_feats.append(x)
 
         inputs = [x, skips[0]]

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from pwstablenet_tpu_torch.kernels.grid_sample import (
     grid_sample_f32,
+    grid_sample_grad_f32,
     grid_sample_packed_u8,
 )
 from pwstablenet_tpu_torch.ops.pixels import from_unit, to_unit
@@ -101,16 +102,26 @@ def warp_image(
 
 
 class _FusedSample(torch.autograd.Function):
-    """f32 kernel forward; the d/dgrid backward kernel is work of the
-    training slice."""
+    """f32 sample kernel forward, d/dgrid kernel backward (plain versions
+    of both on CPU tensors).  The image gradient is zero by contract."""
 
     @staticmethod
     def forward(ctx, image, grid, padding_mode, align_corners):
+        ctx.save_for_backward(image, grid)
+        ctx.padding_mode = padding_mode
+        ctx.align_corners = align_corners
         return grid_sample_f32(image, grid, padding_mode, align_corners)
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError("d/dgrid kernel: training slice")
+        if not ctx.needs_input_grad[1]:
+            return None, None, None, None
+        image, grid = ctx.saved_tensors
+        dgrid = grid_sample_grad_f32(
+            image, grid, grad_out.to(torch.float32).contiguous(),
+            ctx.padding_mode, ctx.align_corners,
+        )
+        return None, dgrid, None, None
 
 
 def warp_image_fused(

@@ -117,7 +117,9 @@ def test_wrappers_use_plain_versions_on_cpu():
             K.grid_sample_packed_u8(u8, grid, mode),
             K.grid_sample_packed_u8_plain(u8, grid, mode),
         )
-    assert K.LAUNCHES == {"grid_sample_f32": 0, "grid_sample_packed_u8": 0}
+    assert K.LAUNCHES == {
+        "grid_sample_f32": 0, "grid_sample_packed_u8": 0, "grid_sample_grad_f32": 0,
+    }
 
 
 def test_wrappers_validate_inputs():

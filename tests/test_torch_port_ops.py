@@ -180,5 +180,12 @@ def test_warp_image_fused_forward_and_backward():
     f = _t(flow).requires_grad_(True)
     out = warp.warp_image_fused(_t(img), f)
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=1e-5)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+    # the backward is the d/dgrid kernel's plain version on the CPU; the
+    # flow is upsampled inside the warp, so each element sums ~15 pixels'
+    # gradients (of up to ~40) in each framework's own order
+    ref_grad = jax.grad(
+        lambda fl: jnp.sum(jax_warp.warp_image_fused(jnp.asarray(img), fl))
+    )(jnp.asarray(flow))
+    out.sum().backward()
+    assert np.abs(np.asarray(ref_grad)).max() > 1.0
+    np.testing.assert_allclose(f.grad.numpy(), np.asarray(ref_grad), rtol=1e-4, atol=1e-3)
