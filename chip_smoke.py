@@ -11,9 +11,14 @@ Phases, each printing one JSON line:
              ``grid_sample_f32`` at (8,256,256,3) and, on a random and on
              the identity grid, at the training path's (16,256,256,3), for
              every padding mode x align_corners, plus a +-300-row vertical
-             displacement at 720p (atol 1e-5); ``grid_sample_packed_u8``
-             at (8,720,1280,3) with smooth random flows, border and
-             reflection (+-1 code);
+             displacement at 720p, C = 1 and C = 5, W = 853 and a grid
+             view 4 bytes off its storage (atol 1e-5);
+             ``grid_sample_packed_u8`` at (8,720,1280,3) with smooth
+             random flows, border and reflection, both align_corners,
+             plus (2,480,853,3), (2,1080,1920,3), image views 1, 2 and 3
+             bytes off their storage, a (2,360,640) grid over a 720p
+             image, +-300 rows and +-600 columns of displacement and a
+             random grid (+-1 code);
              ``grid_sample_grad_f32`` at (16,256,256,3) for every padding
              mode x align_corners on a random and on the identity grid,
              plus the +-300-row case at 720p (atol 2e-4, rtol 1e-4).
@@ -38,7 +43,9 @@ Phases, each printing one JSON line:
              time (``grid_sample_f32`` at both its shapes) beside its
              bound, its plain version's time and one PyTorch call's
              (``F.grid_sample``, ``grid_sampler_2d_backward``; the port
-             never calls them).
+             never calls them), its time on a (1,8,8,3) frame
+             (``floor_ms``: launch, ramp and tail) and on its random
+             check grid (``random_grid_ms``).
 
 Then the ``kernels`` line, the card's name and power limit from
 ``nvidia-smi``, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -57,6 +64,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
+HOLD_CYCLES = 2_000_000        # ~1 ms of SM clock: time_launches' stream hold
 SEED = 0
 
 
@@ -88,15 +96,17 @@ def smooth_grid(torch, b, h, w, mag, gen, cells=(6, 10)):
 def time_launches(torch, fn, reps, flush):
     """Median ms of ``fn()`` over ``reps`` launches, each timed with CUDA
     events after a write of ``flush``.  The flush is larger than the
-    50 MB L2, so the inputs come from device memory, and it keeps the
-    card busy for ~80 us while the host enqueues ``fn``, so the events
-    time the device's work rather than the wrapper's host overhead."""
+    50 MB L2, so the inputs come from device memory.  Before it, a spin
+    kernel holds the stream for ~1 ms while the host enqueues the flush,
+    the events and ``fn``, so the events time the device's work and none
+    of the wrapper's host overhead, however slow the host."""
     fn()
     times = []
     for _ in range(reps):
-        flush.zero_()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
+        flush.zero_()
         a.record()
         fn()
         b.record()
@@ -198,6 +208,22 @@ def main() -> int:
         out = K.grid_sample_f32(tall, tgrid, mode)
         ref = K.grid_sample_f32_plain(tall, tgrid, mode)
         f32_cases[f"{mode}/+-300rows"] = (out - ref).abs().max().item()
+    # the redesigned kernel's hazards: other channel counts (the generic
+    # path), an odd row width (tap pairs and rows at both 8-byte
+    # alignments), and a grid view 4 bytes off its storage's start
+    # (scalar grid loads)
+    odd_grid = torch.rand(2, 480, 853, 2, device="cuda", generator=gen) * 2.4 - 1.2
+    offset_grid = torch.empty(grid.numel() + 1, device="cuda")[1:].view(grid.shape)
+    offset_grid.copy_(grid)
+    for mode in ("border", "zeros", "reflection"):
+        for key, im, gr in (
+                (f"{mode}/C=1", torch.rand(2, 256, 256, 1, device="cuda", generator=gen), grid[:2]),
+                (f"{mode}/C=5", torch.rand(2, 256, 256, 5, device="cuda", generator=gen), grid[:2]),
+                (f"{mode}/W=853", torch.rand(2, 480, 853, 3, device="cuda", generator=gen), odd_grid),
+                (f"{mode}/grid_offset_4B", img, offset_grid)):
+            out = K.grid_sample_f32(im, gr, mode)
+            ref = K.grid_sample_f32_plain(im, gr, mode)
+            f32_cases[key] = (out - ref).abs().max().item()
     torch.cuda.synchronize()
     f32_err = max(f32_cases.values())
     emit("kernel_f32", max_abs_err=f32_err, cases=f32_cases, atol=1e-5)
@@ -207,12 +233,42 @@ def main() -> int:
                        device="cuda", generator=gen)
     ugrid = smooth_grid(torch, 8, 720, 1280, 0.2, gen)
     u8_cases = {}
-    for mode in ("border", "reflection"):
-        out = K.grid_sample_packed_u8(u8, ugrid, mode)
-        ref = K.grid_sample_packed_u8_plain(u8, ugrid, mode)
+
+    def u8_case(key, im, gr, mode="border", ac=True):
+        out = K.grid_sample_packed_u8(im, gr, mode, ac)
+        ref = K.grid_sample_packed_u8_plain(im, gr, mode, ac)
         d = (out.int() - ref.int()).abs()
-        u8_cases[mode] = {"max_code_diff": d.max().item(),
-                          "share_differing": (d > 0).double().mean().item()}
+        u8_cases[key] = {"max_code_diff": d.max().item(),
+                         "share_differing": (d > 0).double().mean().item()}
+
+    for mode in ("border", "reflection"):
+        u8_case(mode, u8, ugrid, mode)
+        u8_case(f"{mode}/ac=False", u8, ugrid, mode, False)
+    # the grouped design's hazards: an odd row width (short head and tail
+    # groups), 1080p, image views at odd byte offsets (word taps from
+    # unaligned frames), an output size unlike the image's, large and
+    # rough displacements
+    u8_case("(2,480,853)", torch.randint(0, 256, (2, 480, 853, 3), dtype=torch.uint8,
+                                         device="cuda", generator=gen),
+            smooth_grid(torch, 2, 480, 853, 0.2, gen))
+    u8_case("(2,1080,1920)", torch.randint(0, 256, (2, 1080, 1920, 3), dtype=torch.uint8,
+                                           device="cuda", generator=gen),
+            smooth_grid(torch, 2, 1080, 1920, 0.2, gen))
+    for k in (1, 2, 3):
+        view = torch.empty(u8[:2].numel() + k, dtype=torch.uint8, device="cuda")[k:]
+        view = view.view(u8[:2].shape)
+        view.copy_(u8[:2])
+        u8_case(f"image_offset_{k}B", view, ugrid[:2])
+    u8_case("grid(2,360,640)/image(2,720,1280)", u8[:2], smooth_grid(torch, 2, 360, 640, 0.2, gen))
+    far = smooth_grid(torch, 2, 720, 1280, 0.1, gen)
+    far[..., 1] += (300.0 / (0.5 * (720 - 1))) * torch.where(
+        torch.arange(1280, device="cuda") % 2 == 0, 1.0, -1.0)
+    far[..., 0] += (600.0 / (0.5 * (1280 - 1))) * torch.where(
+        torch.arange(720, device="cuda") % 2 == 0, 1.0, -1.0)[:, None]
+    u8_case("+-300rows+-600cols", u8[:2], far)
+    # a random, non-smooth grid over the whole frame (also timed below)
+    urand = torch.rand(8, 720, 1280, 2, device="cuda", generator=gen) * 2.4 - 1.2
+    u8_case("random", u8, urand)
     torch.cuda.synchronize()
     u8_err = max(c["max_code_diff"] for c in u8_cases.values())
     emit("kernel_packed_u8", max_abs_err=u8_err, cases=u8_cases, atol=1)
@@ -457,7 +513,15 @@ def main() -> int:
     sgrid16 = smooth_grid(torch, 16, 256, 256, 0.2, gen)
     gimg_nchw = gimg.permute(0, 3, 1, 2).contiguous()
     gcot_nchw = gcot.permute(0, 3, 1, 2).contiguous()
+    # floor_ms: each kernel on a (1,8,8,3) frame, the fixed cost of a
+    # launch, its ramp and its tail; random_grid_ms: each kernel on its
+    # random check grid, the price of gathers that do not coalesce
+    fimg = torch.rand(1, 8, 8, 3, device="cuda", generator=gen)
+    fu8 = torch.randint(0, 256, (1, 8, 8, 3), dtype=torch.uint8, device="cuda", generator=gen)
+    fgrid = smooth_grid(torch, 1, 8, 8, 0.2, gen)
     k1 = {
+        "floor_ms": time_launches(torch, lambda: K.grid_sample_f32(fimg, fgrid), 50, flush),
+        "random_grid_ms": time_launches(torch, lambda: K.grid_sample_f32(img, grid), 50, flush),
         "ms": time_launches(torch, lambda: K.grid_sample_f32(img, sgrid), 50, flush),
         "plain_ms": time_launches(torch, lambda: K.grid_sample_f32_plain(img, sgrid), 10, flush),
         "library_ms": time_launches(torch, lambda: F.grid_sample(
@@ -470,11 +534,19 @@ def main() -> int:
             gimg_nchw, sgrid16, "bilinear", "border", True), 50, flush),
     }
     k2 = {
+        "floor_ms": time_launches(torch, lambda: K.grid_sample_packed_u8(fu8, fgrid), 50, flush),
+        "random_grid_ms": time_launches(
+            torch, lambda: K.grid_sample_packed_u8(u8, urand), 50, flush),
         "ms": time_launches(torch, lambda: K.grid_sample_packed_u8(u8, ugrid), 50, flush),
         "plain_ms": time_launches(torch, lambda: K.grid_sample_packed_u8_plain(u8, ugrid), 5, flush),
         "library_ms": None,
     }
+    fcot = torch.randn(1, 8, 8, 3, device="cuda", generator=gen)
     k3 = {
+        "floor_ms": time_launches(
+            torch, lambda: K.grid_sample_grad_f32(fimg, fgrid, fcot), 50, flush),
+        "random_grid_ms": time_launches(
+            torch, lambda: K.grid_sample_grad_f32(gimg, ggrid, gcot), 50, flush),
         "ms": time_launches(torch, lambda: K.grid_sample_grad_f32(gimg, sgrid16, gcot), 50, flush),
         "plain_ms": time_launches(
             torch, lambda: K.grid_sample_grad_f32_plain(gimg, sgrid16, gcot), 5, flush),
@@ -508,6 +580,7 @@ def main() -> int:
          "launches_train": train_launches["grid_sample_f32"], "max_abs_err": f32_err,
          "ms": k1["ms"], "kernel_ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": b1, "bound_by": by1, "library_ms": k1["library_ms"],
+         "floor_ms": k1["floor_ms"], "random_grid_ms": k1["random_grid_ms"],
          "shape": list(img.shape),
          "train_shape": list(gimg.shape), "train_ms": k1["train_ms"],
          "train_plain_ms": k1["train_plain_ms"], "train_bound_ms": b1t,
@@ -518,6 +591,7 @@ def main() -> int:
          "launches": launches["grid_sample_packed_u8"], "max_abs_err": u8_err,
          "ms": k2["ms"], "kernel_ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": b2, "bound_by": by2, "library_ms": k2["library_ms"],
+         "floor_ms": k2["floor_ms"], "random_grid_ms": k2["random_grid_ms"],
          "shape": list(u8.shape)},
         {"name": "grid_sample_grad_f32", "route": "cuda",
          "source": "pwstablenet_tpu_torch/csrc/grid_sample.cu",
@@ -527,6 +601,7 @@ def main() -> int:
          "max_abs_err": grad_err,
          "ms": k3["ms"], "kernel_ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": b3, "bound_by": by3, "library_ms": k3["library_ms"],
+         "floor_ms": k3["floor_ms"], "random_grid_ms": k3["random_grid_ms"],
          "shape": list(gimg.shape)},
     ]
     torch.cuda.synchronize()

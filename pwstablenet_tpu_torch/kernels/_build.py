@@ -20,6 +20,7 @@ import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = ("grid_sample.cu",)
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 # -fmad=false: no fused multiply-add contraction, so the kernels round
 # each step as their plain PyTorch versions do.
@@ -53,25 +54,27 @@ def _nvcc() -> str:
     return path
 
 
-def _library_path() -> str:
+def _library_path(csrc: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in _SOURCES:
-        with open(os.path.join(_PKG_DIR, "csrc", name), "rb") as f:
+        with open(os.path.join(csrc, name), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libpwst_kernels_{h.hexdigest()[:16]}.so")
 
 
-def build() -> dict:
-    """Compile the kernel library if it is not built yet.
+def build(csrc: str = CSRC_DIR) -> dict:
+    """Compile the kernel library from the sources in ``csrc`` (this
+    package's by default; another tree's ``csrc`` with the same C
+    interface, for an A/B) if it is not built yet.
 
     Returns ``{"path", "seconds", "log"}``: ``seconds`` is 0 and ``log``
     empty when the library was already there."""
-    path = _library_path()
+    path = _library_path(csrc)
     if os.path.exists(path):
         return {"path": path, "seconds": 0.0, "log": ""}
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    srcs = [os.path.join(_PKG_DIR, "csrc", s) for s in _SOURCES]
+    srcs = [os.path.join(csrc, s) for s in _SOURCES]
     t0 = time.perf_counter()
     proc = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
@@ -87,9 +90,9 @@ def build() -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    lib = ctypes.CDLL(build()["path"])
+def library(csrc: str = CSRC_DIR) -> ctypes.CDLL:
+    """The loaded kernel library of ``csrc`` (built on first call)."""
+    lib = ctypes.CDLL(build(csrc)["path"])
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

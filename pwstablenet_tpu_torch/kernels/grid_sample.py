@@ -17,6 +17,31 @@ Reflection padding is a grid pre-reflection (``_reflect_grid``)
 followed by a border sample, for all three kernels; the gradient is
 then multiplied by the reflection's sign ``dsign``.
 
+The two forward kernels are designed for the H100, where the
+instructions and the loads in flight around each byte, more than device
+memory, hold a gather back (the header of ``csrc/grid_sample.cu`` has
+the whole design and ``PERF.md`` what each step bought).  Both launch
+a 3-D grid (column groups, rows, batch) and index a frame in 32 bits;
+both read the grid and write the output with evict-first hints, and
+gather taps through the read-only path.
+
+- ``grid_sample_f32``: one thread per output pixel, so a warp's loads
+  cover neighbouring pixels; for RGB, each tap row pair (6 adjacent
+  floats) comes in 8-byte loads, 6-8 a pixel instead of 12 float loads.
+- ``grid_sample_packed_u8``: four adjacent pixels a thread, their grid
+  entries in two 16-byte loads and their 12 output bytes in three 4-byte
+  stores; each tap row pair (6 adjacent bytes) comes in one or two
+  aligned 8-byte loads, 2-4 a pixel instead of 12 byte loads; registers
+  capped at 32, so that eight blocks fit on each SM.
+
+Where a packed group of pixels is not whole (a row's head or tail) or
+an address is not aligned (an image, grid or output that is a view at
+an odd offset, a row width that is no multiple of the group), the kernel
+takes its per-pixel path for that group: same arithmetic, scalar loads
+and stores; the f32 kernel loads an unaligned grid entry as two floats.
+Any displacement is exact; any ``Ho x Wo`` is taken, up to 65535 frames
+and 524280 rows (the 3-D launch's limits).
+
 Each wrapper runs its plain version when the tensors lie on the CPU,
 and launches its kernel on a CUDA tensor: there is no fallback between
 the two.  ``LAUNCHES`` counts kernel launches per kernel; the plain
@@ -36,6 +61,9 @@ from pwstablenet_tpu_torch.ops.grid_sample import grid_sample as _oracle
 LAUNCHES = {
     "grid_sample_f32": 0, "grid_sample_packed_u8": 0, "grid_sample_grad_f32": 0,
 }
+
+# what the forward kernels' C interface refuses with CUDA error 1
+_FORWARD_LIMITS = "H*W*C < 2^31, B <= 65535 and Ho <= 524280"
 
 
 def reset_launch_counts() -> None:
@@ -167,7 +195,9 @@ def grid_sample_f32(image, grid, padding_mode="border", align_corners=True):
         torch.cuda.current_stream(image.device).cuda_stream,
     )
     if err:
-        raise RuntimeError(f"grid_sample_f32 launch failed: CUDA error {err}")
+        raise RuntimeError(
+            f"grid_sample_f32 launch failed: CUDA error {err} (limits: {_FORWARD_LIMITS})"
+        )
     LAUNCHES["grid_sample_f32"] += 1
     return out
 
@@ -224,7 +254,8 @@ def grid_sample_packed_u8(image, grid, padding_mode="border", align_corners=True
     )
     if err:
         raise RuntimeError(
-            f"grid_sample_packed_u8 launch failed: CUDA error {err}"
+            f"grid_sample_packed_u8 launch failed: CUDA error {err} "
+            f"(limits: {_FORWARD_LIMITS})"
         )
     LAUNCHES["grid_sample_packed_u8"] += 1
     return out

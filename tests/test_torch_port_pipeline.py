@@ -174,8 +174,9 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
 
 
 def test_port_imports_nothing_of_jax():
-    """Importing every module of the port (and chip_smoke.py) leaves
-    jax, flax and pwstablenet_tpu out of sys.modules."""
+    """Importing every module of the port (and chip_smoke.py,
+    kernel_ab.py) leaves jax, flax and pwstablenet_tpu out of
+    sys.modules."""
     code = r"""
 import importlib, pkgutil, sys
 import pwstablenet_tpu_torch as pkg
@@ -183,7 +184,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 assert len(names) >= 12, names
 for name in names:
     importlib.import_module(name)
-import chip_smoke
+import chip_smoke, kernel_ab
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "pwstablenet_tpu"))
 assert not bad, bad
