@@ -21,7 +21,10 @@ Phases, each printing one JSON line:
              random grid (+-1 code);
              ``grid_sample_grad_f32`` at (16,256,256,3) for every padding
              mode x align_corners on a random and on the identity grid,
-             plus the +-300-row case at 720p (atol 2e-4, rtol 1e-4).
+             plus the +-300-row case at 720p and, in every padding mode,
+             C = 1 and C = 5, W = 853, a (2,360,640) grid and cotangent
+             over a 720p image, and grid and cotangent views 4 bytes off
+             their storage, each alone and both (atol 2e-4, rtol 1e-4).
 4. main    - ``Stabilizer(ModelConfig(), PipelineConfig(batch_windows=8))``
              at full width, seeded random weights with small nonzero
              heads, stabilizes a 24-frame 720p uint8 clip; both forward
@@ -212,9 +215,13 @@ def main() -> int:
     # path), an odd row width (tap pairs and rows at both 8-byte
     # alignments), and a grid view 4 bytes off its storage's start
     # (scalar grid loads)
+    def offset_4B(t):
+        """a copy of f32 ``t`` in a view 4 bytes into its storage"""
+        view = torch.empty(t.numel() + 1, device="cuda")[1:].view(t.shape)
+        return view.copy_(t)
+
     odd_grid = torch.rand(2, 480, 853, 2, device="cuda", generator=gen) * 2.4 - 1.2
-    offset_grid = torch.empty(grid.numel() + 1, device="cuda")[1:].view(grid.shape)
-    offset_grid.copy_(grid)
+    offset_grid = offset_4B(grid)
     for mode in ("border", "zeros", "reflection"):
         for key, im, gr in (
                 (f"{mode}/C=1", torch.rand(2, 256, 256, 1, device="cuda", generator=gen), grid[:2]),
@@ -291,6 +298,27 @@ def main() -> int:
     tcot = torch.randn(2, 720, 1280, 3, device="cuda", generator=gen)
     for mode in ("border", "zeros"):
         grad_case(f"{mode}/+-300rows", tall, tgrid, tcot, mode)
+    # the redesigned kernel's hazards: other channel counts (the generic
+    # path), an odd row width (tap pairs and cotangents at both 8-byte
+    # alignments), an output size unlike the image's, and grid and
+    # cotangent views 4 bytes off their storage's start (scalar grid
+    # loads, the cotangent's float before its float2)
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    half_grid = smooth_grid(torch, 2, 360, 640, 0.2, gen)
+    offset_cot = offset_4B(gcot[:8])
+    for mode in ("border", "zeros", "reflection"):
+        for c in (1, 5):
+            grad_case(f"{mode}/C={c}", torch.rand(2, 256, 256, c, device="cuda", generator=gen),
+                      ggrid[:2], randn(2, 256, 256, c), mode)
+        grad_case(f"{mode}/W=853", torch.rand(2, 480, 853, 3, device="cuda", generator=gen),
+                  odd_grid, randn(2, 480, 853, 3), mode)
+        grad_case(f"{mode}/grid(2,360,640)/image(2,720,1280)", tall, half_grid,
+                  randn(2, 360, 640, 3), mode)
+        grad_case(f"{mode}/grid_offset_4B", img, offset_grid, gcot[:8], mode)
+        grad_case(f"{mode}/cot_offset_4B", img, grid, offset_cot, mode)
+        grad_case(f"{mode}/grid+cot_offset_4B", img, offset_grid, offset_cot, mode)
     torch.cuda.synchronize()
     grad_err = max(c["max_abs_err"] for c in grad_cases.values())
     emit("kernel_grad", max_abs_err=grad_err, cases=grad_cases, atol=2e-4, rtol=1e-4)

@@ -29,15 +29,16 @@
 // What holds a sampler back on this card is less device memory than the
 // work around each byte: the instructions that address, fetch, convert
 // and blend it (the blend keeps the plain version's rounding, so no
-// fused multiply-adds), and the loads the SM can keep in flight.  The two
-// forward kernels are built for that:
+// fused multiply-adds), and the loads the SM can keep in flight.  All
+// three kernels are built for that:
 // - Launch: a 3-D grid, x for column groups, y for rows, z for the
 //   batch, so a thread finds its pixels with 32-bit arithmetic inside
 //   its frame and no division.
-// - Cache policy: the grid is read once and the output written once,
-//   with the evict-first hints (ld.global.cs / st.global.cs); the taps
-//   go through the read-only path (ld.global.nc), so the image, which
-//   the taps read again and again, stays in the 50 MB L2.
+// - Cache policy: the grid (and the gradient's cotangent) is read once
+//   and the output written once, with the evict-first hints
+//   (ld.global.cs / st.global.cs); the taps go through the read-only path
+//   (ld.global.nc), so the image, which the taps read again and again,
+//   stays in the 50 MB L2.
 // - f32 sample: one thread per output pixel, so that neighbouring lanes
 //   gather neighbouring taps and each warp instruction touches few
 //   lines.  Its grid entry is one float2 (two floats in a view at an odd
@@ -48,6 +49,18 @@
 //   of 12.  Other channel counts loop over C.  Groups of 2 or 4 pixels a
 //   thread were measured slower (PERF.md): fewer threads, and more
 //   registers each.
+// - d/dgrid: the f32 sample's design, with the cotangent as a third
+//   stream.  One thread per output pixel; its grid entry is one float2
+//   (two floats where it is not 8-byte aligned); at C = 3 its 12
+//   cotangent bytes are a float2 and a float, in the order their
+//   alignment allows, and the tap row pairs come in 8-byte loads, so a
+//   pixel issues 9-11 loads instead of 16.  The masks are applied after
+//   the loads: the clamped tap offsets always lie in the frame.  At C = 3
+//   registers are capped at 32 (eight blocks on each SM), which was
+//   measured 1 % faster on a smooth grid; two pixels a thread, 6 % slower
+//   (PERF.md).  It needs no atomics: there is no image gradient, only one
+//   float2 per output pixel, summed over the channels in the thread.  It
+//   takes about twice its bound: a launch floor of ~6.3 us, then ~2.2 TB/s.
 // - Packed uint8 sample: four adjacent output pixels a thread.  Their
 //   grid entries load as two float4s, and their 12 output bytes store as
 //   three 4-byte words.  A tap row pair (x0, x1) is 6 contiguous bytes at
@@ -78,14 +91,9 @@
 //
 // Reflection padding is done by the wrapper (a pre-reflected grid
 // sampled with border; the gradient is then multiplied by the
-// reflection's sign).  The gradient kernel is one thread per output
-// pixel: it loads its grid entry as one float2, computes the four tap
-// addresses and weights once and loops over the channels.  It needs no
-// atomics: it produces no image gradient, only one float2 per output
-// pixel, summed over the channels in the thread.  The arithmetic of
-// every kernel repeats its plain version's order step for step (the
-// library is built with -fmad=false), so a kernel and its plain version
-// agree to float rounding.
+// reflection's sign).  The arithmetic of every kernel repeats its plain
+// version's order step for step (the library is built with -fmad=false),
+// so a kernel and its plain version agree bit for bit.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -109,9 +117,10 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 }
 
 // ---------------------------------------------------------------------
-// forward kernels: a 3-D launch of 32 x 8 thread blocks (column groups,
-// rows, batch); grid read and output written with evict-first hints
-// (__ldcs / __stcs), taps through the read-only path (__ldg)
+// all three kernels: a 3-D launch of 32 x 8 thread blocks (column groups,
+// rows, batch); grid (and cotangent) read and output written with
+// evict-first hints (__ldcs / __stcs), taps through the read-only path
+// (__ldg)
 // ---------------------------------------------------------------------
 
 constexpr int kBlockX = 32;   // column groups per block (one warp)
@@ -174,6 +183,19 @@ __device__ __forceinline__ float blend_f32(const float* __restrict__ img, const 
     return v;
 }
 
+// One pixel's grid entry: a float2, or two floats where it is not 8-byte
+// aligned (a grid view at an odd float offset).
+__device__ __forceinline__ void load_grid_entry(const float* gp, float& gx, float& gy) {
+    if (aligned(gp, 8)) {
+        const float2 g = __ldcs(reinterpret_cast<const float2*>(gp));
+        gx = g.x;
+        gy = g.y;
+    } else {
+        gx = __ldcs(gp);
+        gy = __ldcs(gp + 1);
+    }
+}
+
 // The 6 floats at p (two adjacent RGB taps) with 8-byte loads: three
 // where p is 8-byte aligned, else four from the float before p.
 __device__ __forceinline__ void load_pair(const float* p, float (&f)[6]) {
@@ -206,16 +228,8 @@ grid_sample_f32_kernel(const float* __restrict__ image,
     if (x >= Wo || y >= Ho) return;
     const size_t pixel = ((size_t)blockIdx.z * Ho + y) * Wo + x;
     const int nc = kC > 0 ? kC : C;
-    const float* gp = grid + 2 * pixel;
     float gx, gy;
-    if (aligned(gp, 8)) {
-        const float2 g = __ldcs(reinterpret_cast<const float2*>(gp));
-        gx = g.x;
-        gy = g.y;
-    } else {
-        gx = __ldcs(gp);
-        gy = __ldcs(gp + 1);
-    }
+    load_grid_entry(grid + 2 * pixel, gx, gy);
     const float* img = image + (size_t)blockIdx.z * H * W * nc;
     float* o = out + pixel * nc;
     const F32Taps t = f32_taps(gx, gy, H, W, nc, zeros, align_corners);
@@ -411,18 +425,18 @@ grid_sample_packed_u8_kernel(const uint8_t* __restrict__ image,
     }
 }
 
-// Blocks of a forward kernel's launch: groups of PX pixels along a row
-// (one more where rows start off a multiple of PX), rows, batch.
-dim3 forward_blocks(int B, int Ho, int Wo, int PX) {
+// Blocks of a kernel's launch: groups of PX pixels along a row (one more
+// where rows start off a multiple of PX), rows, batch.
+dim3 launch_blocks(int B, int Ho, int Wo, int PX) {
     const int groups = Wo % PX == 0 ? Wo / PX : (Wo + 2 * PX - 2) / PX;
     return dim3((unsigned)((groups + kBlockX - 1) / kBlockX),
                 (unsigned)((Ho + kBlockY - 1) / kBlockY), (unsigned)B);
 }
 
-// The forward kernels' limits: a frame indexes in 32 bits, and the
-// launch's y and z dimensions (rows / kBlockY, batch) take at most 65535
-// blocks each.
-bool forward_fits(int B, int Ho, long long frame_values) {
+// The kernels' limits: a frame indexes in 32 bits, and the launch's y
+// and z dimensions (rows / kBlockY, batch) take at most 65535 blocks
+// each.
+bool launch_fits(int B, int Ho, long long frame_values) {
     return frame_values <= INT_MAX && B <= 65535 && Ho <= 65535 * kBlockY;
 }
 
@@ -436,21 +450,31 @@ bool forward_fits(int B, int Ho, long long frame_values) {
 //   row window ends there; it matters only at y == H-1 exactly); the
 //   gradient is zeroed where the UNCLIPPED coordinate lies outside the
 //   closed range [0, size-1], so it is kept on the boundary itself.
-__global__ void __launch_bounds__(kThreads)
+// One thread per output pixel, as the f32 sample.  kC = 3: RGB, the
+// cotangent as a float2 and a float, a tap row pair as 8-byte loads where
+// its two taps are adjacent (masked corners take 0 after the load: the
+// clamped offsets always lie in the frame), and eight blocks on each SM
+// (32 registers, no spills); kC = 0: any C, read at run time (it would
+// spill at 32 registers).
+template <int kC>
+__global__ void __launch_bounds__(kThreads, kC == 3 ? 8 : 1)
 grid_sample_grad_f32_kernel(const float* __restrict__ image,
-                            const float2* __restrict__ grid,
+                            const float* __restrict__ grid,
                             const float* __restrict__ cot,
-                            float2* __restrict__ out,
-                            int B, int H, int W, int C, int Ho, int Wo,
+                            float* __restrict__ out,
+                            int H, int W, int C, int Ho, int Wo,
                             int zeros, int align_corners) {
-    const long long n = (long long)B * Ho * Wo;
-    const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= n) return;
-    const int b = (int)(p / ((long long)Ho * Wo));
+    static_assert(kC == 0 || kC == 3, "C = 3 or any C");
+    const int px = blockIdx.x * kBlockX + threadIdx.x;
+    const int py = blockIdx.y * kBlockY + threadIdx.y;
+    if (px >= Wo || py >= Ho) return;
+    const size_t pixel = ((size_t)blockIdx.z * Ho + py) * Wo + px;
+    const int nc = kC > 0 ? kC : C;
+    float gx, gy;
+    load_grid_entry(grid + 2 * pixel, gx, gy);
 
-    const float2 g = grid[p];
-    const float ux = unnormalize(g.x, W, align_corners);
-    const float uy = unnormalize(g.y, H, align_corners);
+    const float ux = unnormalize(gx, W, align_corners);
+    const float uy = unnormalize(gy, H, align_corners);
     float x = ux, y = uy;
     if (!zeros) {
         x = clampf(x, 0.0f, (float)(W - 1));
@@ -472,21 +496,60 @@ grid_sample_grad_f32_kernel(const float* __restrict__ image,
 
     const int cx0 = clampi(x0, 0, W - 1), cx1 = clampi(x1, 0, W - 1);
     const int cy0 = clampi(y0, 0, H - 1), cy1 = clampi(y1, 0, H - 1);
-    const float* base = image + (size_t)b * H * W * C;
-    const float* t00 = base + ((size_t)cy0 * W + cx0) * C;
-    const float* t01 = base + ((size_t)cy0 * W + cx1) * C;
-    const float* t10 = base + ((size_t)cy1 * W + cx0) * C;
-    const float* t11 = base + ((size_t)cy1 * W + cx1) * C;
-    const float* gp = cot + (size_t)p * C;
+    const float* img = image + (size_t)blockIdx.z * H * W * nc;
+    const int o00 = (cy0 * W + cx0) * nc, o01 = (cy0 * W + cx1) * nc;
+    const int o10 = (cy1 * W + cx0) * nc, o11 = (cy1 * W + cx1) * nc;
+    const float* cp = cot + pixel * nc;
     float dgx = 0.0f, dgy = 0.0f;
-    for (int c = 0; c < C; ++c) {
-        const float a00 = m00 ? __ldg(t00 + c) : 0.0f;
-        const float a01 = m01 ? __ldg(t01 + c) : 0.0f;
-        const float a10 = m10 ? __ldg(t10 + c) : 0.0f;
-        const float a11 = m11 ? __ldg(t11 + c) : 0.0f;
-        const float gc = __ldg(gp + c);
-        dgx = dgx + gc * ((1.0f - fy) * (a01 - a00) + fy * (a11 - a10));
-        dgy = dgy + gc * ((1.0f - fx) * (a10 - a00) + fx * (a11 - a01));
+    if constexpr (kC == 3) {
+        // the cotangent's 12 bytes: a float2 then a float where they start
+        // 8-byte aligned (an even pixel of an aligned tensor), else a float
+        // then a float2
+        float g[3];
+        if (aligned(cp, 8)) {
+            const float2 v = __ldcs(reinterpret_cast<const float2*>(cp));
+            g[0] = v.x;
+            g[1] = v.y;
+            g[2] = __ldcs(cp + 2);
+        } else {
+            g[0] = __ldcs(cp);
+            const float2 v = __ldcs(reinterpret_cast<const float2*>(cp + 1));
+            g[1] = v.x;
+            g[2] = v.y;
+        }
+        // taps 00, 01 in r0 and 10, 11 in r1, three floats each
+        float r0[6], r1[6];
+        if (o01 == o00 + 3) {  // then also o11 == o10 + 3: the same columns
+            load_pair(img + o00, r0);
+            load_pair(img + o10, r1);
+        } else {
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                r0[c] = __ldg(img + o00 + c);
+                r0[3 + c] = __ldg(img + o01 + c);
+                r1[c] = __ldg(img + o10 + c);
+                r1[3 + c] = __ldg(img + o11 + c);
+            }
+        }
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            const float a00 = m00 ? r0[c] : 0.0f;
+            const float a01 = m01 ? r0[3 + c] : 0.0f;
+            const float a10 = m10 ? r1[c] : 0.0f;
+            const float a11 = m11 ? r1[3 + c] : 0.0f;
+            dgx = dgx + g[c] * ((1.0f - fy) * (a01 - a00) + fy * (a11 - a10));
+            dgy = dgy + g[c] * ((1.0f - fx) * (a10 - a00) + fx * (a11 - a01));
+        }
+    } else {
+        for (int c = 0; c < nc; ++c) {
+            const float a00 = m00 ? __ldg(img + o00 + c) : 0.0f;
+            const float a01 = m01 ? __ldg(img + o01 + c) : 0.0f;
+            const float a10 = m10 ? __ldg(img + o10 + c) : 0.0f;
+            const float a11 = m11 ? __ldg(img + o11 + c) : 0.0f;
+            const float gc = __ldcs(cp + c);
+            dgx = dgx + gc * ((1.0f - fy) * (a01 - a00) + fy * (a11 - a10));
+            dgy = dgy + gc * ((1.0f - fx) * (a10 - a00) + fx * (a11 - a01));
+        }
     }
     if (!zeros) {
         if (!(ux >= 0.0f && ux <= (float)(W - 1))) dgx = 0.0f;
@@ -494,27 +557,24 @@ grid_sample_grad_f32_kernel(const float* __restrict__ image,
     }
     const float sx = align_corners ? 0.5f * (float)(W - 1) : 0.5f * (float)W;
     const float sy = align_corners ? 0.5f * (float)(H - 1) : 0.5f * (float)H;
-    out[p] = make_float2(dgx * sx, dgy * sy);
-}
-
-inline unsigned int blocks_for(long long n) {
-    return (unsigned int)((n + kThreads - 1) / kThreads);
+    // the output is fresh from torch.empty, so 8-byte aligned
+    __stcs(reinterpret_cast<float2*>(out) + pixel, make_float2(dgx * sx, dgy * sy));
 }
 
 }  // namespace
 
 // C interface.  Each function launches on the given stream, does not
-// synchronise, and returns cudaGetLastError() (0 on success).  The two
-// forward kernels return cudaErrorInvalidValue (1) without launching
-// unless a frame indexes in 32 bits (H * W * C < 2^31 values), B <= 65535
-// and Ho <= 65535 * 8.
+// synchronise, and returns cudaGetLastError() (0 on success).  All three
+// return cudaErrorInvalidValue (1) without launching unless an image
+// frame indexes in 32 bits (H * W * C < 2^31 values), B <= 65535 and
+// Ho <= 65535 * 8.
 
 extern "C" int pwst_grid_sample_f32(const void* image, const void* grid, void* out,
                                     int B, int H, int W, int C, int Ho, int Wo,
                                     int zeros, int align_corners, void* stream) {
-    if (!forward_fits(B, Ho, (long long)H * W * C)) return (int)cudaErrorInvalidValue;
+    if (!launch_fits(B, Ho, (long long)H * W * C)) return (int)cudaErrorInvalidValue;
     if (B > 0 && Ho > 0 && Wo > 0) {
-        const dim3 blocks = forward_blocks(B, Ho, Wo, 1);
+        const dim3 blocks = launch_blocks(B, Ho, Wo, 1);
         const dim3 threads(kBlockX, kBlockY);
         if (C == 3) {
             grid_sample_f32_kernel<3><<<blocks, threads, 0, (cudaStream_t)stream>>>(
@@ -532,9 +592,9 @@ extern "C" int pwst_grid_sample_f32(const void* image, const void* grid, void* o
 extern "C" int pwst_grid_sample_packed_u8(const void* image, const void* grid, void* out,
                                           int B, int H, int W, int Ho, int Wo,
                                           int align_corners, void* stream) {
-    if (!forward_fits(B, Ho, (long long)H * W * 3)) return (int)cudaErrorInvalidValue;
+    if (!launch_fits(B, Ho, (long long)H * W * 3)) return (int)cudaErrorInvalidValue;
     if (B > 0 && Ho > 0 && Wo > 0) {
-        const dim3 blocks = forward_blocks(B, Ho, Wo, kPackedPixels);
+        const dim3 blocks = launch_blocks(B, Ho, Wo, kPackedPixels);
         const dim3 threads(kBlockX, kBlockY);
         if (align_corners) {
             grid_sample_packed_u8_kernel<1><<<blocks, threads, 0, (cudaStream_t)stream>>>(
@@ -551,11 +611,19 @@ extern "C" int pwst_grid_sample_grad_f32(const void* image, const void* grid,
                                          const void* cot, void* out,
                                          int B, int H, int W, int C, int Ho, int Wo,
                                          int zeros, int align_corners, void* stream) {
-    const long long n = (long long)B * Ho * Wo;
-    if (n > 0) {
-        grid_sample_grad_f32_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-            (const float*)image, (const float2*)grid, (const float*)cot, (float2*)out,
-            B, H, W, C, Ho, Wo, zeros, align_corners);
+    if (!launch_fits(B, Ho, (long long)H * W * C)) return (int)cudaErrorInvalidValue;
+    if (B > 0 && Ho > 0 && Wo > 0) {
+        const dim3 blocks = launch_blocks(B, Ho, Wo, 1);
+        const dim3 threads(kBlockX, kBlockY);
+        if (C == 3) {
+            grid_sample_grad_f32_kernel<3><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+                (const float*)image, (const float*)grid, (const float*)cot, (float*)out,
+                H, W, C, Ho, Wo, zeros, align_corners);
+        } else {
+            grid_sample_grad_f32_kernel<0><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+                (const float*)image, (const float*)grid, (const float*)cot, (float*)out,
+                H, W, C, Ho, Wo, zeros, align_corners);
+        }
     }
     return (int)cudaGetLastError();
 }

@@ -17,13 +17,13 @@ Reflection padding is a grid pre-reflection (``_reflect_grid``)
 followed by a border sample, for all three kernels; the gradient is
 then multiplied by the reflection's sign ``dsign``.
 
-The two forward kernels are designed for the H100, where the
-instructions and the loads in flight around each byte, more than device
-memory, hold a gather back (the header of ``csrc/grid_sample.cu`` has
-the whole design and ``PERF.md`` what each step bought).  Both launch
-a 3-D grid (column groups, rows, batch) and index a frame in 32 bits;
-both read the grid and write the output with evict-first hints, and
-gather taps through the read-only path.
+All three kernels are designed for the H100, where the instructions and
+the loads in flight around each byte, more than device memory, hold a
+gather back (the header of ``csrc/grid_sample.cu`` has the whole design
+and ``PERF.md`` what each step bought).  Each launches a 3-D grid
+(column groups, rows, batch) and indexes a frame in 32 bits; each reads
+the grid (and the cotangent) and writes the output with evict-first
+hints, and gathers taps through the read-only path.
 
 - ``grid_sample_f32``: one thread per output pixel, so a warp's loads
   cover neighbouring pixels; for RGB, each tap row pair (6 adjacent
@@ -33,14 +33,20 @@ gather taps through the read-only path.
   stores; each tap row pair (6 adjacent bytes) comes in one or two
   aligned 8-byte loads, 2-4 a pixel instead of 12 byte loads; registers
   capped at 32, so that eight blocks fit on each SM.
+- ``grid_sample_grad_f32``: one thread per output pixel, as the f32
+  sample; for RGB, the tap row pairs in 8-byte loads and the 12
+  cotangent bytes as an 8-byte and a 4-byte load, 9-11 loads a pixel
+  instead of 16.
 
 Where a packed group of pixels is not whole (a row's head or tail) or
 an address is not aligned (an image, grid or output that is a view at
 an odd offset, a row width that is no multiple of the group), the kernel
 takes its per-pixel path for that group: same arithmetic, scalar loads
-and stores; the f32 kernel loads an unaligned grid entry as two floats.
-Any displacement is exact; any ``Ho x Wo`` is taken, up to 65535 frames
-and 524280 rows (the 3-D launch's limits).
+and stores; the f32 and d/dgrid kernels load an unaligned grid entry as
+two floats, and d/dgrid an RGB cotangent that starts off an 8-byte
+boundary as a float and then a float2.  Any displacement is exact; any
+``Ho x Wo`` is taken, up to 65535 frames and 524280 rows (the 3-D
+launch's limits).
 
 Each wrapper runs its plain version when the tensors lie on the CPU,
 and launches its kernel on a CUDA tensor: there is no fallback between
@@ -62,13 +68,28 @@ LAUNCHES = {
     "grid_sample_f32": 0, "grid_sample_packed_u8": 0, "grid_sample_grad_f32": 0,
 }
 
-# what the forward kernels' C interface refuses with CUDA error 1
-_FORWARD_LIMITS = "H*W*C < 2^31, B <= 65535 and Ho <= 524280"
+# what the C interface of every kernel refuses with CUDA error 1: a frame
+# that does not index in 32 bits, and more frames or rows than the 3-D
+# launch takes
+_LAUNCH_LIMITS = "H*W*C < 2^31, B <= 65535 and Ho <= 524280"
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Launch kernel ``name`` through its C entry point ``pwst_<name>`` on
+    ``device``'s current stream and count it; raise if it was refused."""
+    err = getattr(library(), f"pwst_{name}")(
+        *args, torch.cuda.current_stream(device).cuda_stream
+    )
+    if err:
+        raise RuntimeError(
+            f"{name} launch failed: CUDA error {err} (limits: {_LAUNCH_LIMITS})"
+        )
+    LAUNCHES[name] += 1
 
 
 def _reflect_grid(
@@ -189,16 +210,10 @@ def grid_sample_f32(image, grid, padding_mode="border", align_corners=True):
     )
     _check_contiguous(image, grid)
     out = torch.empty((b, ho, wo, c), dtype=torch.float32, device=image.device)
-    err = library().pwst_grid_sample_f32(
-        image.data_ptr(), grid.data_ptr(), out.data_ptr(),
+    _launch(
+        "grid_sample_f32", image.device, image.data_ptr(), grid.data_ptr(), out.data_ptr(),
         b, h, w, c, ho, wo, int(mode == "zeros"), int(bool(align_corners)),
-        torch.cuda.current_stream(image.device).cuda_stream,
     )
-    if err:
-        raise RuntimeError(
-            f"grid_sample_f32 launch failed: CUDA error {err} (limits: {_FORWARD_LIMITS})"
-        )
-    LAUNCHES["grid_sample_f32"] += 1
     return out
 
 
@@ -247,17 +262,10 @@ def grid_sample_packed_u8(image, grid, padding_mode="border", align_corners=True
     )
     _check_contiguous(image, grid)
     out = torch.empty((b, ho, wo, 3), dtype=torch.uint8, device=image.device)
-    err = library().pwst_grid_sample_packed_u8(
-        image.data_ptr(), grid.data_ptr(), out.data_ptr(),
-        b, h, w, ho, wo, int(bool(align_corners)),
-        torch.cuda.current_stream(image.device).cuda_stream,
+    _launch(
+        "grid_sample_packed_u8", image.device, image.data_ptr(), grid.data_ptr(),
+        out.data_ptr(), b, h, w, ho, wo, int(bool(align_corners)),
     )
-    if err:
-        raise RuntimeError(
-            f"grid_sample_packed_u8 launch failed: CUDA error {err} "
-            f"(limits: {_FORWARD_LIMITS})"
-        )
-    LAUNCHES["grid_sample_packed_u8"] += 1
     return out
 
 
@@ -361,12 +369,9 @@ def grid_sample_grad_f32(image, grid, cot, padding_mode="border", align_corners=
     grid, mode, dsign = _grad_grid(grid, h, w, padding_mode, align_corners)
     _check_contiguous(image, grid, cot)
     out = torch.empty((b, ho, wo, 2), dtype=torch.float32, device=image.device)
-    err = library().pwst_grid_sample_grad_f32(
-        image.data_ptr(), grid.data_ptr(), cot.data_ptr(), out.data_ptr(),
+    _launch(
+        "grid_sample_grad_f32", image.device, image.data_ptr(), grid.data_ptr(),
+        cot.data_ptr(), out.data_ptr(),
         b, h, w, c, ho, wo, int(mode == "zeros"), int(bool(align_corners)),
-        torch.cuda.current_stream(image.device).cuda_stream,
     )
-    if err:
-        raise RuntimeError(f"grid_sample_grad_f32 launch failed: CUDA error {err}")
-    LAUNCHES["grid_sample_grad_f32"] += 1
     return out if dsign is None else out * dsign

@@ -22,6 +22,8 @@ from pwstablenet_tpu.ops import warp as jax_warp
 from pwstablenet_tpu_torch.kernels import grid_sample as K
 from pwstablenet_tpu_torch.ops import warp
 
+from test_torch_port_kernels import _SHAPE_CASES, _offset_view
+
 ATOL, RTOL = 2e-4, 1e-4
 MODES = [(m, ac) for m in ("border", "zeros", "reflection") for ac in (True, False)]
 
@@ -117,6 +119,52 @@ def test_tie_on_the_clamp_boundary_follows_the_tpu_kernel():
     np.testing.assert_allclose(out[inner], xla[inner], atol=ATOL, rtol=RTOL)
 
 
+# the f32 kernel's hard shapes, plus the generic channel path
+_GRAD_SHAPE_CASES = {
+    **{k: (*v, 3) for k, v in _SHAPE_CASES.items()},
+    "C=1": ((2, 9, 14), (2, 9, 14), 0, 1),
+    "C=5": ((2, 9, 14), (2, 9, 14), 0, 5),
+}
+
+
+@pytest.mark.parametrize("padding_mode,align_corners", MODES)
+@pytest.mark.parametrize("case", list(_GRAD_SHAPE_CASES))
+def test_grad_plain_matches_jax_grad_shapes(case, padding_mode, align_corners):
+    """The d/dgrid plain version against ``jax.grad`` of ``sum(cot *
+    grid_sample(image, grid))`` through the JAX package's XLA sampler, at
+    the shapes the redesigned kernel finds hardest: a ragged row, an odd
+    wide row (tap pairs at both 8-byte alignments), an output size
+    unlike the image's, image, grid and cotangent views off their
+    storage's start, and 1 and 5 channels.
+
+    The grid is uniform in (-1.2, 1.2), so no coordinate sits on a clamp
+    tie, where the XLA sampler halves the gradient (``ROADMAP.md``
+    Queue 3).  atol 2e-4 / rtol 1e-4 in every mode, unwidened: where the
+    source coordinates differ by rounding (``align_corners=False``, whose
+    ``(g+1)*size-1`` XLA contracts into a fused multiply-add, and the
+    pre-reflected grid against a reflected coordinate), the gradient
+    along one axis moves by an ulp of the other axis's fraction times
+    its scale; the largest excess over rtol at these shapes is 5.9e-5
+    (W = 853, reflection, ``align_corners=False``)."""
+    (b, h, w), (_, ho, wo), k, c = _GRAD_SHAPE_CASES[case]
+    rng = np.random.default_rng(12)
+    img = rng.random((b, h, w, c), np.float32)
+    grid = rng.uniform(-1.2, 1.2, (b, ho, wo, 2)).astype(np.float32)
+    cot = rng.standard_normal((b, ho, wo, c)).astype(np.float32)
+
+    def scalar(g):
+        return jnp.sum(jnp.asarray(cot) * jax_grid_sample(
+            jnp.asarray(img), g, padding_mode=padding_mode, align_corners=align_corners))
+
+    ref = np.asarray(jax.grad(scalar)(jnp.asarray(grid)))
+    out = K.grid_sample_grad_f32_plain(
+        _offset_view(img, k), _offset_view(grid, k), _offset_view(cot, k),
+        padding_mode, align_corners,
+    ).numpy()
+    assert out.shape == (b, ho, wo, 2) and np.abs(ref).max() > 1.0
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=RTOL)
+
+
 def test_fused_warp_flow_gradient_matches_jax():
     """``warp_image_fused``'s flow gradient on a smooth non-identity flow
     against ``jax.grad`` of the JAX ``warp_image_fused``: atol 1e-4, as
@@ -175,3 +223,41 @@ def test_grad_wrapper_validates_inputs():
     # not the CPU and not CUDA: no plain-version path, no kernel
     with pytest.raises(ValueError, match="CUDA"):
         K.grid_sample_grad_f32(img.to("meta"), grid.to("meta"), cot.to("meta"))
+
+
+class _RefusingLibrary:
+    """A kernel library whose every C entry point refuses its launch with
+    CUDA error 1, as the C interface does beyond the launch's limits."""
+
+    def __getattr__(self, name):
+        assert name.startswith("pwst_"), name
+        return lambda *args: 1
+
+
+@pytest.mark.parametrize("kernel", list(K.LAUNCHES))
+def test_refused_launch_names_the_limits(kernel, monkeypatch):
+    """Each wrapper turns a refused launch into an error that names its
+    kernel and the limits shared by all three kernels' C interface, and
+    does not count it.  CPU-side: the wrappers are taken past their CPU
+    dispatch onto a library that refuses, so nothing launches."""
+    from types import SimpleNamespace
+
+    monkeypatch.setattr(K, "_on_cpu", lambda image, grid: False)
+    monkeypatch.setattr(K, "library", lambda: _RefusingLibrary())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    K.reset_launch_counts()
+    img = torch.zeros(1, 4, 4, 3)
+    grid = torch.zeros(1, 4, 4, 2)
+    call = {
+        "grid_sample_f32": lambda: K.grid_sample_f32(img, grid),
+        "grid_sample_packed_u8": lambda: K.grid_sample_packed_u8(img.to(torch.uint8), grid),
+        "grid_sample_grad_f32": lambda: K.grid_sample_grad_f32(img, grid, torch.zeros(1, 4, 4, 3)),
+    }[kernel]
+    with pytest.raises(RuntimeError) as info:
+        call()
+    msg = str(info.value)
+    assert msg.startswith(f"{kernel} launch failed: CUDA error 1")
+    for limit in ("H*W*C < 2^31", "B <= 65535", "Ho <= 524280"):
+        assert limit in msg
+    assert all(v == 0 for v in K.LAUNCHES.values())
