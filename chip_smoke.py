@@ -38,7 +38,38 @@ Phases, each printing one JSON line:
              f32 sample kernel launched.  Then one f32 step (TF32 off) at
              a tiny config on the card and on the CPU from one state and
              batch: metrics rtol 1e-4, parameters within 1e-6 on 99.9 %.
-6. timing  - frames/s of ``stabilize_frames`` and ms per chunk (bf16,
+6. surface - the user-facing surface (run after the inference timings,
+             before training), on the main path's Stabilizer and clip,
+             each line with the kernel launches made during it:
+             ``surface_stream``: ``Stabilizer._stream_to`` (the loop of
+             ``stabilize_video``) on chunks of 8 frames into an in-memory
+             writer and a ``WarpFieldWriter`` archive: 24 frames out,
+             bitwise equal to ``stabilize_frames``, both forward kernels
+             launched, frames/s;
+             ``surface_warp_fields``: ``load_warp_fields`` of that archive
+             (equal to the flows) and ``apply_warp_fields`` on the clip:
+             bitwise equal to the streamed frames, packed kernel launched;
+             ``surface_export``: ``export_chunk_step`` at 720p on the
+             card, ``torch.export.save``, ``ExportedStabilizerStep.load``,
+             one chunk: bitwise equal to ``_chunk_step``, each forward
+             kernel launched once by the exported call itself; export,
+             save and load seconds; ms per chunk, exported and eager, in
+             turns, and the device's busy time over 3 chunks of each;
+             and a tiny model's step traced on the CPU, run on the card:
+             kernels launched, equal to ``_chunk_step`` there;
+             ``surface_cli``: ``cli.main`` in process: ``stabilize
+             --synthetic`` (24 720p frames, ``--warp-fields``),
+             ``export`` (720p), ``train --synthetic`` (tiny model, 2
+             steps, ``--tb-log-dir``, ``--scalar-log``): exit 0, their
+             JSON lines, the event file read back, d/dgrid launched 6
+             times;
+             ``surface_video``: a 24-frame 720p FFV1 file through
+             ``stabilize_video`` (the native decoder where its runtime
+             builds and loads, else OpenCV's Python path, as on the
+             card's machine, which has ``cv2`` but no OpenCV C++
+             headers; the line names which): 24 frames, the file and
+             the archive bitwise equal to ``stabilize_frames``.
+7. timing  - frames/s of ``stabilize_frames`` and ms per chunk (bf16,
              720p); ms per full-width train step, steps/s, windows/s and
              peak memory; ``torch.profiler`` passes over one
              ``stabilize_frames`` call and over 3 train steps (the
@@ -59,6 +90,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -150,6 +182,206 @@ def profile_device(torch, fn):
             "device_idle_share": (1.0 - busy_ms / wall_ms) if rows else None,
             "top_device_ms": [[k, us / 1e3, c] for us, k, c in rows[:12]],
             "annotations_not_counted_ms": annotations}
+
+
+def surface(torch, np, st, clip, out, flows, work) -> None:
+    """The user-facing surface on the card: the streaming loop behind
+    ``stabilize_video`` (``_stream_to``), the warp-field archive and
+    ``apply_warp_fields``, the exported chunk step, the CLI and
+    ``stabilize_video`` on a video file.  ``st`` is the main path's
+    ``Stabilizer``; ``out, flows`` its ``stabilize_frames(clip)``."""
+    from types import SimpleNamespace
+
+    from pwstablenet_tpu_torch import export as E
+    from pwstablenet_tpu_torch.config import ModelConfig, PipelineConfig
+    from pwstablenet_tpu_torch.data import native_io, video_io
+    from pwstablenet_tpu_torch.data.warp_fields import WarpFieldWriter, load_warp_fields
+    from pwstablenet_tpu_torch.kernels import grid_sample as K
+    from pwstablenet_tpu_torch.pipeline import Stabilizer, apply_warp_fields
+
+    def launched(fn):
+        """(fn(), seconds, launches during it)"""
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0, dict(K.LAUNCHES)
+
+    n_frames = clip.shape[0]
+    both = ("grid_sample_f32", "grid_sample_packed_u8")
+
+    # the streaming loop, chunks of 8 decoded frames in, into an
+    # in-memory writer and a warp-field archive
+    written = []
+    wf_path = os.path.join(work, "fields.npz")
+
+    def stream():
+        with WarpFieldWriter(wf_path) as fw:
+            return st._stream_to((clip[i : i + 8] for i in range(0, n_frames, 8)),
+                                 SimpleNamespace(write=written.append), fw)
+
+    count, secs, launches = launched(stream)
+    streamed = np.concatenate(written)
+    check(count == n_frames and np.array_equal(streamed, out),
+          f"_stream_to: {count} frames, equal to stabilize_frames: "
+          f"{np.array_equal(streamed, out)}")
+    check(all(launches[k] > 0 for k in both), f"_stream_to launches {launches}")
+    emit("surface_stream", frames=count, seconds=secs, frames_per_s=count / secs,
+         launches=launches, frame_size=list(clip.shape[1:3]),
+         batch_windows=st.pipeline_cfg.batch_windows, bitwise_equal_to_stabilize_frames=True)
+
+    # the archive, re-applied to the same frames
+    loaded = load_warp_fields(wf_path)
+    check(np.array_equal(loaded, flows), "archive equals stabilize_frames' warp fields")
+    redo, secs, launches = launched(lambda: apply_warp_fields(clip, loaded, st.model_cfg))
+    check(np.array_equal(redo, streamed), "apply_warp_fields equals the streamed frames")
+    check(launches["grid_sample_packed_u8"] > 0, f"apply_warp_fields launches {launches}")
+    emit("surface_warp_fields", frames=int(loaded.shape[0]), fields=list(loaded.shape),
+         archive_mb=os.path.getsize(wf_path) / 1e6, apply_seconds=secs, launches=launches,
+         bitwise_equal_to_stream=True)
+
+    # the exported chunk step: traced on the card, saved, loaded, run
+    T = st.model_cfg.temporal_window
+    n = st.pipeline_cfg.batch_windows
+    frames_dev = torch.from_numpy(clip[: n + T - 1]).cuda()
+    sd = st.model.state_dict()
+    step_path = os.path.join(work, "step.pt2")
+    t0 = time.perf_counter()
+    program = E.export_chunk_step(st, clip.shape[1:3])
+    export_s = time.perf_counter() - t0
+    torch.export.save(program, step_path)
+    save_s = time.perf_counter() - t0 - export_s
+    t0 = time.perf_counter()
+    step = E.ExportedStabilizerStep.load(step_path)
+    load_s = time.perf_counter() - t0
+    (e_out, e_flow), _, exp_launches = launched(lambda: step(sd, frames_dev))
+    check(all(exp_launches[k] == 1 for k in both),
+          f"the exported step's own call launched {exp_launches}")
+    g_out, g_flow = st._chunk_step(frames_dev)
+    check(torch.equal(e_out, g_out) and torch.equal(e_flow, g_flow),
+          "exported step equals _chunk_step")
+    ms = {"exported": [], "eager": []}
+    for _ in range(6):  # in turns, after the warm calls above
+        for name, fn in (("exported", lambda: step(sd, frames_dev)),
+                         ("eager", lambda: st._chunk_step(frames_dev))):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ms[name].append(a.elapsed_time(b))
+    # device busy time of 3 chunks each: the same kernels, or host time
+    busy = {}
+    for name, fn in (("exported", lambda: step(sd, frames_dev)),
+                     ("eager", lambda: st._chunk_step(frames_dev))):
+        prof = profile_device(torch, lambda: [fn() for _ in range(3)])
+        busy[name] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share")}
+    # a program traced on the CPU (tiny model) runs the kernels on the card
+    tiny = ModelConfig(temporal_window=3, num_levels=4, base_features=8, max_features=16,
+                       model_resolution=(32, 32))
+    cpu_st = Stabilizer(tiny, PipelineConfig(batch_windows=4), seed=SEED, device="cpu")
+    with torch.no_grad():
+        for s in range(tiny.num_stages):
+            head = getattr(cpu_st.model, f"stage{s}").head
+            head.weight.copy_(torch.randn(head.weight.shape,
+                                          generator=torch.Generator().manual_seed(s)) * 1e-2)
+    cpu_path = os.path.join(work, "cpu_traced.pt2")
+    torch.export.save(E.export_chunk_step(cpu_st, (48, 64)), cpu_path)
+    cpu_step = E.ExportedStabilizerStep.load(cpu_path)
+    tiny_sd = cpu_st.model.state_dict()
+    card_st = Stabilizer(tiny, PipelineConfig(batch_windows=4), state_dict=tiny_sd)
+    tiny_frames = torch.from_numpy(clip[:6, :48, :64].copy()).cuda()
+    (c_out, c_flow), _, cpu_launches = launched(lambda: cpu_step(tiny_sd, tiny_frames))
+    c_ref = card_st._chunk_step(tiny_frames)
+    check(all(cpu_launches[k] == 1 for k in both),
+          f"the CPU-traced step on the card launched {cpu_launches}")
+    check(torch.equal(c_out, c_ref[0]) and torch.equal(c_flow, c_ref[1]),
+          "CPU-traced exported step on the card equals _chunk_step there")
+    emit("surface_export", frame_size=list(clip.shape[1:3]), windows=n,
+         export_seconds=export_s, save_seconds=save_s, load_seconds=load_s,
+         artifact_mb=os.path.getsize(step_path) / 1e6,
+         exported_chunk_ms=statistics.median(ms["exported"]),
+         eager_chunk_ms=statistics.median(ms["eager"]), chunk_ms_each=ms,
+         profile_3_chunks=busy,
+         launches_in_exported_call=exp_launches, bitwise_equal_to_chunk_step=True,
+         cpu_traced_tiny={"launches": cpu_launches, "bitwise_equal": True})
+
+    # the command line, in process
+    import contextlib
+    import glob
+    import io
+
+    from pwstablenet_tpu_torch.cli.main import main as cli
+    from pwstablenet_tpu_torch.utils.tb_writer import read_event_file
+
+    def run_cli(argv):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(argv)
+        torch.cuda.synchronize()
+        lines = buf.getvalue().strip().splitlines()
+        check(rc == 0 and lines, f"cli {argv[0]}: rc {rc}, output {lines[-3:]}")
+        return (json.loads(lines[-1]), lines, time.perf_counter() - t0, dict(K.LAUNCHES))
+
+    cli_wf = os.path.join(work, "cli_fields.npz")
+    line, _, secs, launches = run_cli(
+        ["stabilize", "--synthetic", "--frames", "24", "--height", "720", "--width", "1280",
+         "--warp-fields", cli_wf])
+    check(line["frames"] == 24 and load_warp_fields(cli_wf).shape == (24, 256, 256, 2),
+          f"cli stabilize: {line}")
+    check(launches["grid_sample_f32"] > 0, f"cli stabilize launches {launches}")
+    cli_stab = {"line": line, "seconds": secs, "launches": launches}
+    line, _, secs, launches = run_cli(
+        ["export", "--output", os.path.join(work, "cli_step.pt2")])
+    check(line["frame_hw"] == [720, 1280], f"cli export: {line}")
+    cli_export = {"line": line, "seconds": secs}
+    tb_dir = os.path.join(work, "tb")
+    scalars = os.path.join(work, "scalars.jsonl")
+    line, lines, secs, launches = run_cli(
+        ["train", "--synthetic", "--steps", "2", "--batch-size", "2", "--log-every", "1",
+         "--temporal-window", "3", "--num-levels", "4", "--base-features", "8",
+         "--max-features", "16", "--model-height", "32", "--model-width", "32",
+         "--disc-layers", "2", "--checkpoint-dir", os.path.join(work, "ckpt"),
+         "--tb-log-dir", tb_dir, "--scalar-log", scalars])
+    (events_path,) = glob.glob(os.path.join(tb_dir, "events.out.tfevents.*"))
+    events = read_event_file(events_path)
+    tags = {k for e in events for k in e.get("scalars", {})}
+    check({"loss_g", "loss_d"} <= tags and line["step"] == 2, f"cli train: {line}, {tags}")
+    with open(scalars) as f:
+        check(len(f.readlines()) == 2, "cli train: 2 scalar lines")
+    check(launches["grid_sample_grad_f32"] == 6, f"cli train launches {launches}")
+    emit("surface_cli", stabilize=cli_stab, export=cli_export,
+         train={"line": line, "seconds": secs, "launches": launches,
+                "tb_events": len(events), "tb_tags": sorted(tags)})
+
+    # stabilize_video on a video file: 24 lossless (FFV1) 720p frames
+    src = os.path.join(work, "in.avi")
+    video_io.write_video(src, clip, 30.0, codec="FFV1")
+    # the decoder stabilize_video takes: native where the runtime builds
+    # and loads (native_io.available()), else OpenCV's Python path
+    try:
+        native_io.load()
+        native = {"available": True}
+    except (OSError, RuntimeError) as e:
+        native = {"available": False, "error": str(e)[-400:]}
+    check(native_io.available() == native["available"], "native_io.available()")
+    vst = Stabilizer(st.model_cfg, PipelineConfig(batch_windows=8, output_codec="FFV1"),
+                     state_dict=sd)
+    dst, vwf = os.path.join(work, "out.avi"), os.path.join(work, "out_fields.npz")
+    res, secs, launches = launched(lambda: vst.stabilize_video(src, dst, warp_field_path=vwf))
+    check(res["frames"] == n_frames and res["fps"] == 30.0, f"stabilize_video: {res}")
+    decoded, _ = video_io.read_video(dst, dtype=np.uint8)
+    check(np.array_equal(decoded, out) and np.array_equal(load_warp_fields(vwf), flows),
+          "stabilize_video's file and archive equal stabilize_frames")
+    check(all(launches[k] > 0 for k in both), f"stabilize_video launches {launches}")
+    emit("surface_video", result=res, seconds=secs, frames_per_s=n_frames / secs,
+         launches=launches, decoder="native" if native["available"] else "opencv",
+         native_runtime=native, bitwise_equal_to_stabilize_frames=True)
 
 
 def main() -> int:
@@ -416,6 +648,10 @@ def main() -> int:
 
     # device busy share of stabilize_frames, and device time by kernel
     emit("profile", **profile_device(torch, lambda: st.stabilize_frames(clip)))
+
+    # ---- the user-facing surface -------------------------------------
+    with tempfile.TemporaryDirectory() as work:
+        surface(torch, np, st, clip, out, flows, work)
     del st
 
     # ---- 6. training path --------------------------------------------

@@ -1,0 +1,443 @@
+"""Command-line interface of the port: the JAX package's ``cli/main.py``
+subcommands with the same flags, each printing one JSON line on stdout.
+
+    python -m pwstablenet_tpu_torch.cli stabilize --input shaky.avi --output out.mp4
+    python -m pwstablenet_tpu_torch.cli train --synthetic --steps 1000
+    python -m pwstablenet_tpu_torch.cli stabilize --synthetic --frames 24 --device cpu
+
+Every command that runs a model runs on the card unless ``--device``
+names another device (``--device cpu``: the plain CPU path).  Flags and
+subcommands whose modules are not ported yet raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import sys
+
+
+def _unported(what: str, module: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: {module} is not ported yet (ROADMAP.md Queue 1, item {item})"
+    )
+
+
+def _step_or_best(value: str):
+    """--checkpoint-step accepts a step number or the literal 'best'."""
+    if value == "best":
+        return value
+    try:
+        return int(value)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected a step number or 'best', got {value!r}"
+        )
+
+
+def _add_model_args(p: argparse.ArgumentParser):
+    p.add_argument("--device", default=None,
+                   help="device to run on (default: the CUDA card; 'cpu' "
+                        "runs the plain CPU path)")
+    p.add_argument("--temporal-window", type=int, default=None)
+    p.add_argument("--temporal-center", type=int, default=None,
+                   help="current-frame position in the stack (default: "
+                        "centered; temporal_window-1 = causal "
+                        "zero-lookahead live mode)")
+    p.add_argument("--num-stages", type=int, default=None)
+    p.add_argument("--num-levels", type=int, default=None)
+    p.add_argument("--base-features", type=int, default=None)
+    p.add_argument("--max-features", type=int, default=None)
+    p.add_argument("--norm", choices=["batch", "instance", "group", "none"],
+                   default=None)
+    p.add_argument("--interstage", choices=["features", "warped", "both"],
+                   default=None)
+    p.add_argument("--decoder-impl", dest="decoder_impl",
+                   choices=["deconv", "phase_conv"], default=None,
+                   help="decoder 2x upsampler lowering (the port runs a "
+                        "transposed conv for either)")
+    p.add_argument("--disc-layers", dest="disc_num_layers", type=int,
+                   default=None,
+                   help="PatchGAN stride-2 layers (default 3 = 70x70 "
+                        "receptive field; lower for tiny resolutions)")
+    p.add_argument("--model-height", type=int, default=None)
+    p.add_argument("--model-width", type=int, default=None,
+                   help="working resolution (weights are fully "
+                        "convolutional: a 256-trained checkpoint runs "
+                        "at any multiple of 2^num_levels)")
+    p.add_argument("--use-dropout", action="store_true", default=None,
+                   help="decoder dropout (training regularizer; "
+                        "inference-time generators are deterministic)")
+
+
+def _model_cfg(args):
+    from pwstablenet_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig()
+    over = {}
+    for field in (
+        "temporal_window", "temporal_center", "num_stages", "num_levels",
+        "base_features", "max_features", "norm", "interstage",
+        "decoder_impl", "disc_num_layers", "use_dropout",
+    ):
+        v = getattr(args, field, None)
+        if v is not None:
+            over[field] = v
+    if args.model_height or args.model_width:
+        h = args.model_height or cfg.model_resolution[0]
+        w = args.model_width or cfg.model_resolution[1]
+        over["model_resolution"] = (h, w)
+    return dataclasses.replace(cfg, **over)
+
+
+def _generator_weights(path: str, step=None):
+    """A port checkpoint directory (a training run's, or an inference
+    export) -> the generator's ``state_dict``."""
+    if path.endswith((".pth", ".pt")):
+        raise _unported("a reference .pth checkpoint",
+                        "interop/torch_import.py", 15)
+    from pwstablenet_tpu_torch.train import checkpoint as ckpt
+
+    return ckpt.load_generator_state_dict(path, step=step)
+
+
+def cmd_stabilize(args) -> int:
+    import numpy as np
+
+    from pwstablenet_tpu_torch.config import PipelineConfig
+    from pwstablenet_tpu_torch.pipeline import Stabilizer
+
+    if args.data_parallel:
+        raise _unported("--data-parallel (clip-sharded inference)", "parallel/", 11)
+    model_cfg = _model_cfg(args)
+    pipe_cfg = PipelineConfig(
+        batch_windows=args.batch_windows,
+        border_crop_frac=args.border_crop,
+        emit_warp_fields=args.warp_fields is not None,
+        warp_field_dtype=args.warp_dtype,
+    )
+    state_dict = None
+    if args.checkpoint:
+        state_dict = _generator_weights(args.checkpoint, args.checkpoint_step)
+    stab = Stabilizer(model_cfg, pipe_cfg, state_dict=state_dict, device=args.device)
+
+    if args.synthetic:
+        from pwstablenet_tpu_torch.data.synthetic import synthetic_pair_clip
+
+        _, unstable = synthetic_pair_clip(args.frames, args.height, args.width, seed=0)
+        out, flows = stab.stabilize_frames(unstable)
+        if args.output:
+            from pwstablenet_tpu_torch.data import video_io
+
+            video_io.write_video(args.output, out, 30.0)
+        if args.warp_fields:
+            np.savez_compressed(args.warp_fields, warp_fields=flows)
+        print(json.dumps({
+            "frames": int(out.shape[0]),
+            "shape": list(out.shape),
+            "output": args.output,
+        }))
+        return 0
+
+    if not args.input or not args.output:
+        print("--input/--output required (or --synthetic)", file=sys.stderr)
+        return 2
+    result = stab.stabilize_video(
+        args.input, args.output,
+        warp_field_path=args.warp_fields,
+        max_frames=args.frames if args.frames > 0 else -1,
+    )
+    print(json.dumps(result))
+    return 0
+
+
+def cmd_train(args) -> int:
+    from pwstablenet_tpu_torch.config import MeshConfig, TrainConfig
+    from pwstablenet_tpu_torch.train.loop import synthetic_batch_iterator, train
+
+    if not args.synthetic:
+        raise _unported("training on DeepStab (without --synthetic)",
+                        "data/deepstab.py", 14)
+    if args.mesh_devices > 1:
+        raise _unported(f"--mesh-devices {args.mesh_devices} (data-parallel training)",
+                        "parallel/", 11)
+    model_cfg = _model_cfg(args)
+    train_cfg = TrainConfig(
+        batch_size=args.batch_size,
+        steps_per_epoch=args.steps,
+        num_epochs=1,
+        lr_g=args.lr,
+        lr_d=args.lr,
+        gan_loss=args.gan_loss,
+        temporal_mode=args.temporal_mode,
+        pixel_loss_mode=args.pixel_loss_mode,
+        grad_accum_steps=args.grad_accum,
+        checkpoint_dir=args.checkpoint_dir,
+        log_every=args.log_every,
+        checkpoint_every=args.checkpoint_every,
+        scalar_log_path=args.scalar_log or "",
+        tb_log_dir=args.tb_log_dir or "",
+        ema_decay=args.ema_decay,
+        eval_every=args.eval_every,
+        debug_nans=args.debug_nans,
+        fault_inject_step=args.fault_inject_step,
+        seed=args.seed,
+    )
+    eval_fn = None
+    if args.eval_every > 0:
+        from pwstablenet_tpu_torch.data.synthetic import RICH, synthetic_pair_clip
+        from pwstablenet_tpu_torch.eval.hooks import make_clip_eval_hook
+
+        stable, unstable = synthetic_pair_clip(
+            24, 96, 128, seed=10_000, **(RICH if args.rich else {})
+        )
+        eval_fn = make_clip_eval_hook(model_cfg, unstable, stable_clip=stable, batch_windows=4)
+    mesh_cfg = MeshConfig(num_devices=args.mesh_devices) if args.mesh_devices > 0 else None
+    batches = synthetic_batch_iterator(model_cfg, train_cfg, rich=args.rich)
+    try:
+        state = train(
+            model_cfg, train_cfg, batches, mesh_cfg=mesh_cfg, resume=args.resume,
+            max_steps=args.steps, eval_fn=eval_fn, device=args.device,
+        )
+    finally:
+        batches.close()
+    if args.export_params:
+        from pwstablenet_tpu_torch.train import checkpoint as ckpt
+
+        # inference weights (the EMA copy when tracked), which
+        # `stabilize --checkpoint <path>` loads
+        ckpt.save_generator_state_dict(args.export_params,
+                                       state.generator_params().state_dict())
+    return 0
+
+
+def cmd_export(args) -> int:
+    """Export the inference chunk step (``torch.export``, a .pt2)."""
+    from pwstablenet_tpu_torch.config import PipelineConfig
+    from pwstablenet_tpu_torch.export import save_chunk_step
+    from pwstablenet_tpu_torch.pipeline import Stabilizer
+
+    model_cfg = _model_cfg(args)
+    state_dict = _generator_weights(args.checkpoint) if args.checkpoint else None
+    stab = Stabilizer(model_cfg, PipelineConfig(batch_windows=args.batch_windows),
+                      state_dict=state_dict, device=args.device)
+    path = save_chunk_step(args.output, stab, frame_hw=(args.height, args.width))
+    print(json.dumps({
+        "artifact": path,
+        "frame_hw": [args.height, args.width],
+        "batch_windows": args.batch_windows,
+    }))
+    return 0
+
+
+def cmd_apply_warp(args) -> int:
+    """Re-apply a warp-field archive to the original video: the fields
+    are the transformation, so this reproduces ``stabilize``'s output."""
+    import numpy as np
+
+    from pwstablenet_tpu_torch.data import video_io
+    from pwstablenet_tpu_torch.data.warp_fields import load_warp_fields
+    from pwstablenet_tpu_torch.pipeline import apply_warp_fields
+
+    flows = load_warp_fields(args.warp_fields)
+    frames, fps = video_io.read_video(args.input, dtype=np.uint8, max_frames=flows.shape[0])
+    if frames.shape[0] != flows.shape[0]:
+        print(
+            f"pwstablenet apply-warp: error: {args.input} has "
+            f"{frames.shape[0]} frames but {args.warp_fields} holds "
+            f"{flows.shape[0]} fields",
+            file=sys.stderr,
+        )
+        raise SystemExit(2)
+    out = apply_warp_fields(frames, flows, _model_cfg(args),
+                            batch_frames=args.batch_frames, device=args.device)
+    video_io.write_video(args.output, out, fps)
+    print(json.dumps({"frames": int(out.shape[0]), "output": args.output}))
+    return 0
+
+
+def _strict(value):
+    """NaN and +-inf -> None, through dicts and lists: strict JSON."""
+    if isinstance(value, dict):
+        return {k: _strict(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_strict(v) for v in value]
+    if isinstance(value, float) and not math.isfinite(value):
+        return None
+    return value
+
+
+def cmd_eval(args) -> int:
+    from pwstablenet_tpu_torch.data import video_io
+    from pwstablenet_tpu_torch.eval.metrics import fidelity_report, stability_report
+
+    frames, _ = video_io.read_video(args.input)
+    original = None
+    if args.original:
+        original, _ = video_io.read_video(args.original)
+    report = stability_report(frames, original)
+    if args.ground_truth:
+        # PSNR/SSIM against an ALIGNED ground-truth stable clip
+        gt, _ = video_io.read_video(args.ground_truth)
+        n = min(len(frames), len(gt))
+        report.update(fidelity_report(frames[:n], gt[:n]))
+    # unmeasured metrics (NaN) and a perfect PSNR (inf) print as null
+    print(json.dumps(_strict(report), allow_nan=False))
+    return 0
+
+
+def cmd_make_data(args) -> int:
+    raise _unported("make-data", "data/deepstab.py (write_synthetic_deepstab)", 18)
+
+
+def cmd_bench(args) -> int:
+    raise _unported("bench", "utils/timing.py, utils/profiling.py and the port's bench", 17)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="pwstablenet_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    s = sub.add_parser("stabilize", help="stabilize a video")
+    _add_model_args(s)
+    s.add_argument("--input")
+    s.add_argument("--output")
+    s.add_argument("--checkpoint",
+                   help="port checkpoint directory (a training run's or "
+                        "an --export-params export)")
+    s.add_argument("--checkpoint-step", type=_step_or_best, default=None,
+                   help="pick this step from a training checkpoint dir "
+                        "(default: latest), or 'best' for the "
+                        "auto-tracked best-eval export")
+    s.add_argument("--warp-fields", help="save warp fields to .npz")
+    s.add_argument("--data-parallel", action="store_true",
+                   help="clip-sharded inference over all local devices "
+                        "(not ported yet)")
+    s.add_argument("--warp-dtype", choices=["float32", "float16"],
+                   default="float32",
+                   help="dtype warp fields cross device->host in "
+                        "(float16 halves the flow D2H bytes)")
+    s.add_argument("--batch-windows", type=int, default=8)
+    s.add_argument("--border-crop", type=float, default=0.0)
+    s.add_argument("--synthetic", action="store_true",
+                   help="use a procedural clip instead of --input")
+    s.add_argument("--frames", type=int, default=-1)
+    s.add_argument("--height", type=int, default=480)
+    s.add_argument("--width", type=int, default=832)
+    s.set_defaults(fn=cmd_stabilize)
+
+    t = sub.add_parser("train", help="adversarial training")
+    _add_model_args(t)
+    t.add_argument("--data-root", default="DeepStab")
+    t.add_argument("--synthetic", action="store_true",
+                   help="train on procedural batches (DeepStab data is "
+                        "not ported yet)")
+    t.add_argument("--rich", action="store_true",
+                   help="full synthetic scene model (perspective shake, "
+                        "parallax, occluders, photometric jitter) for "
+                        "--synthetic batches and the held-out eval clip")
+    t.add_argument("--batch-size", type=int, default=8)
+    t.add_argument("--steps", type=int, default=1000)
+    t.add_argument("--checkpoint-dir", default="checkpoints")
+    t.add_argument("--resume", action="store_true")
+    t.add_argument("--lr", type=float, default=2e-4)
+    t.add_argument("--gan-loss", choices=["lsgan", "vanilla", "hinge"],
+                   default="lsgan")
+    t.add_argument("--temporal-mode", choices=["raw", "compensated"],
+                   default="compensated",
+                   help="temporal loss: raw |out_t-out_t+1| or "
+                        "GT-motion-compensated |d(out)-d(gt)| (pans free)")
+    t.add_argument("--pixel-loss-mode",
+                   choices=["l1", "mean_matched", "gradient"],
+                   default="l1",
+                   help="pixel term: plain L1, brightness-gain-matched "
+                        "L1 (exposure-step robust), or finite-difference "
+                        "gradient L1")
+    t.add_argument("--grad-accum", type=int, default=1,
+                   help="micro-batch gradient accumulation steps")
+    t.add_argument("--log-every", type=int, default=50)
+    t.add_argument("--scalar-log", help="also append JSONL scalars to this file")
+    t.add_argument("--tb-log-dir",
+                   help="write TensorBoard event files here "
+                        "(dependency-free writer)")
+    t.add_argument("--eval-every", type=int, default=0,
+                   help="stabilize + score a held-out clip every N steps")
+    t.add_argument("--eval-clip",
+                   help="held-out unstable video for --eval-every "
+                        "(DeepStab mode; synthetic mode generates one)")
+    t.add_argument("--ema-decay", type=float, default=0.0,
+                   help="track an EMA of the generator's weights (0 = "
+                        "off); exported and preferred for inference")
+    t.add_argument("--export-params",
+                   help="after training, save the inference-only "
+                        "generator weights (EMA if tracked) to this "
+                        "directory")
+    t.add_argument("--resize-scale", type=float, nargs=2,
+                   default=[1.0, 1.0], metavar=("MIN", "MAX"),
+                   help="random scale-jitter range before the crop")
+    t.add_argument("--decode-threads", type=int, default=2)
+    t.add_argument("--mesh-devices", type=int, default=-1,
+                   help="cap the data-parallel mesh size (-1: no mesh; "
+                        "more than 1 is not ported yet)")
+    t.add_argument("--checkpoint-every", type=int, default=500)
+    t.add_argument("--debug-nans", action="store_true")
+    t.add_argument("--fault-inject-step", type=int, default=-1)
+    t.add_argument("--seed", type=int, default=0)
+    t.set_defaults(fn=cmd_train)
+
+    x = sub.add_parser("export", help="export the inference step (torch.export, .pt2)")
+    _add_model_args(x)
+    x.add_argument("--output", required=True, help="artifact path")
+    x.add_argument("--checkpoint", help="port checkpoint directory")
+    x.add_argument("--height", type=int, default=720)
+    x.add_argument("--width", type=int, default=1280)
+    x.add_argument("--batch-windows", type=int, default=8)
+    x.set_defaults(fn=cmd_export)
+
+    aw = sub.add_parser(
+        "apply-warp",
+        help="re-apply exported warp fields (.npz) to the original "
+             "video; the fields are the transformation, so this "
+             "reproduces the stabilized output",
+    )
+    _add_model_args(aw)
+    aw.add_argument("--input", required=True, help="original unstable video")
+    aw.add_argument("--warp-fields", required=True,
+                    help=".npz from stabilize --warp-fields")
+    aw.add_argument("--output", required=True)
+    aw.add_argument("--batch-frames", type=int, default=8)
+    aw.set_defaults(fn=cmd_apply_warp)
+
+    b = sub.add_parser("bench", help="run the benchmark suite (not ported yet)")
+    b.set_defaults(fn=cmd_bench)
+
+    e = sub.add_parser("eval", help="stabilization quality metrics")
+    e.add_argument("--input", required=True, help="stabilized video")
+    e.add_argument("--original", help="original unstable video")
+    e.add_argument("--ground-truth",
+                   help="aligned GT stable video (adds PSNR/SSIM)")
+    e.set_defaults(fn=cmd_eval)
+
+    d = sub.add_parser(
+        "make-data",
+        help="write a synthetic DeepStab-shaped dataset (not ported yet)",
+    )
+    d.add_argument("--out", required=True)
+    d.add_argument("--rich", action="store_true")
+    d.add_argument("--curriculum", action="store_true")
+    d.add_argument("--pairs", type=int, default=4)
+    d.add_argument("--frames", type=int, default=60)
+    d.add_argument("--height", type=int, default=288)
+    d.add_argument("--width", type=int, default=384)
+    d.add_argument("--seed", type=int, default=0)
+    d.add_argument("--texture-detail-px", type=float, default=0.0)
+    d.set_defaults(fn=cmd_make_data)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)

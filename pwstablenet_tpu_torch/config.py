@@ -164,7 +164,7 @@ class TrainConfig:
     eval_every: int = 0
     # optional JSONL scalar log file in addition to stdout; "" = stdout only
     scalar_log_path: str = ""
-    # TensorBoard event-file directory; "" = disabled (not ported yet)
+    # TensorBoard event-file directory; "" = disabled
     tb_log_dir: str = ""
     checkpoint_every: int = 1000
     checkpoint_dir: str = "checkpoints"

@@ -52,6 +52,18 @@ Each wrapper runs its plain version when the tensors lie on the CPU,
 and launches its kernel on a CUDA tensor: there is no fallback between
 the two.  ``LAUNCHES`` counts kernel launches per kernel; the plain
 versions do not count.
+
+The two forward kernels are PyTorch operators, ``pwst::grid_sample_f32``
+and ``pwst::grid_sample_packed_u8`` (``torch.library.custom_op``), each
+with a CPU implementation (the plain arithmetic), a CUDA implementation
+(the launch) and a fake one (the output's shape and dtype).  The device
+is chosen by the dispatcher when the operator runs, so a program that
+``torch.export`` traced holds one call node per operator and launches
+the kernel whenever it runs on the card.  The wrappers check their
+inputs and pre-reflect the grid (``_reflect_grid``, plain tensor ops
+that an export traces) before the operator, which samples with border
+or zeros padding only.  ``grid_sample_grad_f32`` is called only from
+``ops.warp._FusedSample.backward`` and stays a plain function.
 """
 
 from __future__ import annotations
@@ -145,17 +157,23 @@ def _border_grid(grid, h, w, padding_mode, align_corners, allowed):
     return grid, padding_mode
 
 
-def _on_cpu(image: torch.Tensor, grid: torch.Tensor) -> bool:
-    """True for CPU tensors; CUDA tensors return False; anything else
-    (mixed devices, other device types) raises."""
+def _check_devices(image: torch.Tensor, grid: torch.Tensor) -> None:
+    """Raise unless both tensors lie on the CPU or on one CUDA device."""
     if image.device.type == "cpu" and grid.device.type == "cpu":
-        return True
+        return
     if image.device.type == "cuda" and image.device == grid.device:
-        return False
+        return
     raise ValueError(
         f"image and grid must both lie on the CPU or on one CUDA "
         f"device; got {image.device} and {grid.device}"
     )
+
+
+def _on_cpu(image: torch.Tensor, grid: torch.Tensor) -> bool:
+    """True for CPU tensors; CUDA tensors return False; anything else
+    (mixed devices, other device types) raises."""
+    _check_devices(image, grid)
+    return image.device.type == "cpu"
 
 
 def _check(image, grid, dtype, channels=None):
@@ -196,25 +214,48 @@ def grid_sample_f32_plain(image, grid, padding_mode="border", align_corners=True
     return _oracle(image, grid, "bilinear", mode, align_corners)
 
 
+def _f32_cpu(image: torch.Tensor, grid: torch.Tensor, zeros: bool,
+             align_corners: bool) -> torch.Tensor:
+    return _oracle(image, grid, "bilinear", "zeros" if zeros else "border",
+                   align_corners)
+
+
+def _f32_cuda(image: torch.Tensor, grid: torch.Tensor, zeros: bool,
+              align_corners: bool) -> torch.Tensor:
+    _check_contiguous(image, grid)
+    b, h, w, c = image.shape
+    _, ho, wo, _ = grid.shape
+    out = torch.empty((b, ho, wo, c), dtype=torch.float32, device=image.device)
+    _launch(
+        "grid_sample_f32", image.device, image.data_ptr(), grid.data_ptr(), out.data_ptr(),
+        b, h, w, c, ho, wo, int(zeros), int(align_corners),
+    )
+    return out
+
+
+def _f32_fake(image, grid, zeros, align_corners):
+    return image.new_empty((image.shape[0], grid.shape[1], grid.shape[2], image.shape[3]))
+
+
+_f32_op = torch.library.custom_op(
+    "pwst::grid_sample_f32", _f32_cpu, mutates_args=(), device_types="cpu",
+    schema="(Tensor image, Tensor grid, bool zeros, bool align_corners) -> Tensor",
+)
+_f32_op.register_kernel("cuda", _f32_cuda)
+_f32_op.register_fake(_f32_fake)
+
+
 def grid_sample_f32(image, grid, padding_mode="border", align_corners=True):
     """Bilinear sample: image (B,H,W,C) f32, grid (B,Ho,Wo,2) f32 ->
     (B,Ho,Wo,C) f32."""
     _check(image, grid, torch.float32)
-    if _on_cpu(image, grid):
-        return grid_sample_f32_plain(image, grid, padding_mode, align_corners)
-    b, h, w, c = image.shape
-    _, ho, wo, _ = grid.shape
+    _check_devices(image, grid)
+    _, h, w, _ = image.shape
     grid, mode = _border_grid(
         grid, h, w, padding_mode, align_corners,
         ("border", "zeros", "reflection"),
     )
-    _check_contiguous(image, grid)
-    out = torch.empty((b, ho, wo, c), dtype=torch.float32, device=image.device)
-    _launch(
-        "grid_sample_f32", image.device, image.data_ptr(), grid.data_ptr(), out.data_ptr(),
-        b, h, w, c, ho, wo, int(mode == "zeros"), int(bool(align_corners)),
-    )
-    return out
+    return torch.ops.pwst.grid_sample_f32(image, grid, mode == "zeros", bool(align_corners))
 
 
 # ---------------------------------------------------------------------
@@ -228,6 +269,12 @@ def grid_sample_packed_u8_plain(image, grid, padding_mode="border", align_corner
     grid, _ = _border_grid(
         grid, h, w, padding_mode, align_corners, ("border", "reflection")
     )
+    return _packed_u8_cpu(image, grid, align_corners)
+
+
+def _packed_u8_cpu(image: torch.Tensor, grid: torch.Tensor,
+                   align_corners: bool) -> torch.Tensor:
+    _, h, w, _ = image.shape
     x = torch.clamp(_unnormalize(grid[..., 0], w, align_corners), 0.0, w - 1)
     y = torch.clamp(_unnormalize(grid[..., 1], h, align_corners), 0.0, h - 1)
     x0f = torch.floor(x)
@@ -249,24 +296,41 @@ def grid_sample_packed_u8_plain(image, grid, padding_mode="border", align_corner
     return torch.clamp(torch.round(v), 0.0, 255.0).to(torch.uint8)
 
 
+def _packed_u8_cuda(image: torch.Tensor, grid: torch.Tensor,
+                    align_corners: bool) -> torch.Tensor:
+    _check_contiguous(image, grid)
+    b, h, w, _ = image.shape
+    _, ho, wo, _ = grid.shape
+    out = torch.empty((b, ho, wo, 3), dtype=torch.uint8, device=image.device)
+    _launch(
+        "grid_sample_packed_u8", image.device, image.data_ptr(), grid.data_ptr(),
+        out.data_ptr(), b, h, w, ho, wo, int(align_corners),
+    )
+    return out
+
+
+def _packed_u8_fake(image, grid, align_corners):
+    return image.new_empty((image.shape[0], grid.shape[1], grid.shape[2], 3))
+
+
+_packed_u8_op = torch.library.custom_op(
+    "pwst::grid_sample_packed_u8", _packed_u8_cpu, mutates_args=(), device_types="cpu",
+    schema="(Tensor image, Tensor grid, bool align_corners) -> Tensor",
+)
+_packed_u8_op.register_kernel("cuda", _packed_u8_cuda)
+_packed_u8_op.register_fake(_packed_u8_fake)
+
+
 def grid_sample_packed_u8(image, grid, padding_mode="border", align_corners=True):
     """uint8 RGB sample: image (B,H,W,3) uint8, grid (B,Ho,Wo,2) f32 ->
     (B,Ho,Wo,3) uint8; border or reflection padding."""
     _check(image, grid, torch.uint8, channels=3)
-    if _on_cpu(image, grid):
-        return grid_sample_packed_u8_plain(image, grid, padding_mode, align_corners)
-    b, h, w, _ = image.shape
-    _, ho, wo, _ = grid.shape
+    _check_devices(image, grid)
+    _, h, w, _ = image.shape
     grid, _ = _border_grid(
         grid, h, w, padding_mode, align_corners, ("border", "reflection")
     )
-    _check_contiguous(image, grid)
-    out = torch.empty((b, ho, wo, 3), dtype=torch.uint8, device=image.device)
-    _launch(
-        "grid_sample_packed_u8", image.device, image.data_ptr(), grid.data_ptr(),
-        out.data_ptr(), b, h, w, ho, wo, int(bool(align_corners)),
-    )
-    return out
+    return torch.ops.pwst.grid_sample_packed_u8(image, grid, bool(align_corners))
 
 
 # ---------------------------------------------------------------------

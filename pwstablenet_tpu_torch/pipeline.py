@@ -9,6 +9,8 @@ fields out.
   reused by up to ``temporal_window`` windows).
 - Chunks stream with a bounded number in flight: chunk i+k is dispatched
   while chunk i's results copy back into pinned host memory.
+- ``stabilize_video`` is the file layer around that stream: native or
+  OpenCV decode, incremental encode, warp fields streamed to an archive.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without ``device="cpu"`` they raise.
@@ -16,6 +18,7 @@ without a card and without ``device="cpu"`` they raise.
 
 from __future__ import annotations
 
+import sys
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -106,6 +109,15 @@ class Stabilizer:
     def _chunk_step(self, frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """frames (N+T-1, H, W, 3) on the device -> (stabilized
         (N, H, W, 3) in the input dtype, flows (N, h, w, 2))."""
+        return self._chunk(frames)
+
+    def _chunk(
+        self, frames: torch.Tensor,
+        state_dict: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The chunk step's body, with the generator's weights taken from
+        ``state_dict`` when given (``export`` traces it so, keeping the
+        weights arguments of the exported program)."""
         cfg = self.model_cfg
         mh, mw = cfg.model_resolution
         T = cfg.temporal_window
@@ -119,7 +131,10 @@ class Stabilizer:
         ).permute(0, 2, 3, 1)
         # window j contributes frames [j, j+n)
         stacks = torch.cat([small[j : j + n] for j in range(T)], dim=-1)
-        flow = self.model(stacks)[-1]
+        if state_dict is None:
+            flow = self.model(stacks)[-1]
+        else:
+            flow = torch.func.functional_call(self.model, state_dict, (stacks,))[-1]
         # warp the RAW center frames: uint8 takes the packed kernel
         centers = frames[cfg.center_index : cfg.center_index + n]
         stabilized = warp_image(
@@ -149,6 +164,93 @@ class Stabilizer:
             outs.append(s)
             flows.append(f)
         return np.concatenate(outs), np.concatenate(flows)
+
+    def stabilize_video(
+        self,
+        input_path: str,
+        output_path: str,
+        warp_field_path: Optional[str] = None,
+        max_frames: int = -1,
+    ) -> dict:
+        """Video in, video out: decode (a background thread) -> device
+        chunks -> stabilized frames -> incremental encode, for videos of
+        any length.  Warp fields stream to ``warp_field_path`` chunk by
+        chunk (``data.warp_fields``) when given.
+
+        The native C++ decoder and encoder (``data.native_io``) come
+        first, then the Python OpenCV path; a missing input raises
+        ``FileNotFoundError``, and any other failure of the native
+        decoder falls back to the OpenCV path with a notice on stderr."""
+        from pwstablenet_tpu_torch.data import native_io, video_io
+        from pwstablenet_tpu_torch.data.prefetch import Prefetcher
+        from pwstablenet_tpu_torch.data.warp_fields import WarpFieldWriter
+
+        cfg = self.pipeline_cfg
+        chunk = max(cfg.batch_windows, 1)
+        decoder = None
+        if native_io.available():
+            try:
+                decoder = native_io.NativeDecoder(
+                    input_path, chunk_frames=chunk, queue_depth=cfg.prefetch_depth,
+                )
+            except FileNotFoundError:
+                raise  # a missing input is the caller's error, not a fallback
+            except Exception as e:
+                print(
+                    "pwstablenet_tpu_torch: native video decoder failed "
+                    f"({type(e).__name__}: {e}); falling back to the Python "
+                    "OpenCV path",
+                    file=sys.stderr,
+                )
+        if decoder is not None:
+            fps, h, w = decoder.fps, decoder.height, decoder.width
+            frames_iter = iter(decoder)
+        else:
+            fps, h, w = video_io.probe_video(input_path)
+            frames_iter = video_io.iter_video(input_path, chunk, dtype=np.uint8)
+        if max_frames > 0:
+            frames_iter = _limit_frames(frames_iter, max_frames)
+        # the encoder takes frames of the border-cropped size
+        dy, dx = self._crop_margins(h, w)
+        size = (h - 2 * dy, w - 2 * dx)
+        prefetch = None
+        if decoder is not None:
+            writer = native_io.NativeEncoder(output_path, fps, size, cfg.output_codec)
+        else:
+            writer = video_io.VideoWriterStream(output_path, fps, size, cfg.output_codec)
+            # the native decoder has its own decode thread and queue
+            frames_iter = prefetch = Prefetcher(frames_iter, cfg.prefetch_depth)
+        flow_writer = None
+        if cfg.emit_warp_fields and warp_field_path:
+            flow_writer = WarpFieldWriter(warp_field_path)
+        try:
+            count = self._stream_to(frames_iter, writer, flow_writer)
+        finally:
+            writer.close()
+            if flow_writer is not None:
+                flow_writer.close()
+            if prefetch is not None:
+                prefetch.close()
+            if decoder is not None:
+                decoder.close()
+        result = {"frames": count, "fps": fps, "output": output_path}
+        if flow_writer is not None:
+            result["warp_fields"] = warp_field_path
+        return result
+
+    def _stream_to(self, frames_iter: Iterator[np.ndarray], writer,
+                   flow_writer=None) -> int:
+        """Stream decoded chunks through the device into ``writer`` (any
+        object with ``write(frames)``), border-cropped, and their warp
+        fields into ``flow_writer`` when given; returns the frame count."""
+        count = 0
+        for stabilized, flow in self._stream(frames_iter, self.pipeline_cfg.batch_windows):
+            stabilized = self._border_crop(stabilized)
+            writer.write(stabilized)
+            count += stabilized.shape[0]
+            if flow_writer is not None:
+                flow_writer.write(flow)
+        return count
 
     # ------------------------------------------------------------------
     def _stream(
@@ -218,13 +320,27 @@ class Stabilizer:
         stabilized, flow = self._chunk_step(src)
         return _Pending(stabilized, flow, pad, src)
 
+    def _crop_margins(self, h: int, w: int) -> Tuple[int, int]:
+        frac = max(self.pipeline_cfg.border_crop_frac, 0.0)
+        return int(h * frac), int(w * frac)
+
     def _border_crop(self, frames: np.ndarray) -> np.ndarray:
-        frac = self.pipeline_cfg.border_crop_frac
-        if frac <= 0:
-            return frames
         _, h, w, _ = frames.shape
-        dy, dx = int(h * frac), int(w * frac)
+        dy, dx = self._crop_margins(h, w)
+        if dy == 0 and dx == 0:
+            return frames
         return frames[:, dy : h - dy, dx : w - dx]
+
+
+def _limit_frames(chunks: Iterator[np.ndarray], limit: int) -> Iterator[np.ndarray]:
+    """The first ``limit`` frames of a stream of chunks."""
+    seen = 0
+    for c in chunks:
+        if seen + c.shape[0] >= limit:
+            yield c[: limit - seen]
+            return
+        seen += c.shape[0]
+        yield c
 
 
 def stabilize(

@@ -12,6 +12,11 @@ generator's inference weights (EMA when tracked) go to
 ``<dir>/best/generator.pt`` and the step and score to
 ``<dir>/best_step.json``, out of reach of the pruning.
 
+An inference-only export (``save_generator_state_dict``, the CLI's
+``train --export-params``) is a directory holding ``generator.pt``;
+``load_generator_state_dict`` reads it as well as a training
+checkpoint directory.
+
 Reading the JAX package's Orbax checkpoints is not ported yet.
 """
 
@@ -134,10 +139,8 @@ def save_best(
     tracked) to ``<directory>/best`` and the record to
     ``best_step.json``.  ``fingerprint`` names the eval configuration,
     so a resume with another eval setup does not compare its scores."""
-    best = os.path.join(directory, BEST_DIR)
-    os.makedirs(best, exist_ok=True)
-    torch.save(state.generator_params().state_dict(),
-               os.path.join(best, GENERATOR_FILE))
+    save_generator_state_dict(os.path.join(directory, BEST_DIR),
+                              state.generator_params().state_dict())
     record = {"step": int(step), "metric": metric, "value": float(value)}
     if fingerprint is not None:
         record["eval_fingerprint"] = fingerprint
@@ -154,6 +157,13 @@ def best_step(directory: str) -> Optional[dict]:
         return json.load(f)
 
 
+def save_generator_state_dict(directory: str, state_dict: Dict[str, torch.Tensor]) -> None:
+    """Inference-only export: ``<directory>/generator.pt``."""
+    os.makedirs(directory, exist_ok=True)
+    torch.save({k: v.detach().cpu() for k, v in state_dict.items()},
+               os.path.join(directory, GENERATOR_FILE))
+
+
 def load_generator_state_dict(
     directory: str, prefer_ema: bool = True,
     step: Optional[Union[int, str]] = None,
@@ -161,12 +171,16 @@ def load_generator_state_dict(
     """Generator weights (a ``state_dict``) from a checkpoint directory:
     the EMA copy when tracked and ``prefer_ema``, else the raw weights,
     of ``step`` (default: the newest); ``step="best"`` loads the
-    ``save_best`` export."""
+    ``save_best`` export.  A directory with no numbered steps and a
+    ``generator.pt`` (an inference-only export) gives that export."""
     if step == "best":
         path = os.path.join(directory, BEST_DIR, GENERATOR_FILE)
         if best_step(directory) is None or not os.path.exists(path):
             raise FileNotFoundError(f"no best-step record in {directory!r}")
         return torch.load(path, map_location="cpu", weights_only=True)
+    export = os.path.join(directory, GENERATOR_FILE)
+    if step is None and not _numbered_steps(directory) and os.path.isfile(export):
+        return torch.load(export, map_location="cpu", weights_only=True)
     p = _load(directory, step)
     if prefer_ema and p["g_ema"] is not None:
         return p["g_ema"]

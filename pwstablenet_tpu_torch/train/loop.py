@@ -8,12 +8,13 @@ card except the metrics fetch at ``log_every``.  Supports:
 
 - resume from the newest checkpoint (``resume=True``);
 - JSONL metrics to stdout, and to ``scalar_log_path`` when set;
+- TensorBoard event files in ``tb_log_dir`` when set
+  (``utils.tb_writer``, no TensorBoard package needed);
 - ``debug_nans``: non-finite metrics raise at log time;
 - fault injection for resume testing (``fault_inject_step``);
 - an optional eval hook with best-step tracking.
 
-Not ported yet (they raise): TensorBoard logs (``tb_log_dir``) and a
-mesh of more than one device.
+Not ported yet (it raises): a mesh of more than one device.
 """
 
 from __future__ import annotations
@@ -32,19 +33,14 @@ from pwstablenet_tpu_torch.pipeline import resolve_device
 from pwstablenet_tpu_torch.train import checkpoint as ckpt
 from pwstablenet_tpu_torch.train.state import TrainState, create_train_state
 from pwstablenet_tpu_torch.train.step import make_train_step
+from pwstablenet_tpu_torch.utils.tb_writer import SummaryWriter
 
 
 class FaultInjected(RuntimeError):
     """Raised by the debug fault-injection flag to test resume."""
 
 
-def _check_unported(train_cfg: TrainConfig, mesh_cfg: Optional[MeshConfig],
-                    device: torch.device) -> None:
-    if train_cfg.tb_log_dir:
-        raise NotImplementedError(
-            "tb_log_dir: the TensorBoard writer (utils/tb_writer.py) is not "
-            "ported yet; use scalar_log_path for JSONL scalars"
-        )
+def _check_unported(mesh_cfg: Optional[MeshConfig], device: torch.device) -> None:
     if mesh_cfg is not None:
         n = mesh_cfg.num_devices
         if n == -1:
@@ -83,7 +79,7 @@ def train(
     """Run adversarial training on ``device`` (the card unless the caller
     asks for the CPU); returns the final ``TrainState``."""
     device = resolve_device(device)
-    _check_unported(train_cfg, mesh_cfg, device)
+    _check_unported(mesh_cfg, device)
     state = create_train_state(model_cfg, train_cfg, device)
     if resume and ckpt.latest_step(train_cfg.checkpoint_dir) is not None:
         state = ckpt.restore_state(train_cfg.checkpoint_dir, state)
@@ -95,21 +91,32 @@ def train(
         else train_cfg.num_epochs * train_cfg.steps_per_epoch
     )
     log = log_fn or (lambda m: print(json.dumps(m), flush=True))
-    scalar_file = None
+    closers = []
     if train_cfg.scalar_log_path:
         scalar_file = open(train_cfg.scalar_log_path, "a", buffering=1)
+        closers.append(scalar_file.close)
         inner_log = log
 
         def log(m, _inner=inner_log, _f=scalar_file):
             _f.write(json.dumps(m) + "\n")
             _inner(m)
 
+    if train_cfg.tb_log_dir:
+        tb = SummaryWriter(train_cfg.tb_log_dir)
+        closers.append(tb.close)
+        inner_log2 = log
+
+        def log(m, _inner=inner_log2, _tb=tb):
+            _tb.add_scalars({k: v for k, v in m.items() if k != "step"},
+                            int(m.get("step", 0)))
+            _inner(m)
+
     try:
         return _run_loop(state, step_fn, batch_iterator, device, train_cfg,
                          total, log, eval_fn)
     finally:
-        if scalar_file is not None:
-            scalar_file.close()
+        for close in closers:
+            close()
 
 
 def _run_loop(state, step_fn, batch_iterator, device, train_cfg, total, log,

@@ -1,0 +1,196 @@
+"""The port's command line (``pwstablenet_tpu_torch.cli``) on the CPU
+(``--device cpu``), in process, at the TINY model sizes: every ported
+subcommand, its output line, its files, and each flag that names a
+module not ported yet."""
+
+import glob
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from pwstablenet_tpu.data import warp_fields as jax_warp_fields
+
+from pwstablenet_tpu_torch.cli import main
+from pwstablenet_tpu_torch.config import ModelConfig, PipelineConfig
+from pwstablenet_tpu_torch.data import video_io, warp_fields
+from pwstablenet_tpu_torch.data.synthetic import synthetic_pair_clip
+from pwstablenet_tpu_torch.export import ExportedStabilizerStep
+from pwstablenet_tpu_torch.pipeline import Stabilizer
+from pwstablenet_tpu_torch.train import checkpoint as ckpt
+from pwstablenet_tpu_torch.utils.tb_writer import read_event_file
+
+# the TINY model of tests/test_torch_port_train.py, as flags
+MODEL = ["--temporal-window", "3", "--num-levels", "4", "--base-features", "8",
+         "--max-features", "16", "--model-height", "32", "--model-width", "32",
+         "--disc-layers", "2"]
+TINY = ModelConfig(temporal_window=3, num_levels=4, base_features=8, max_features=16,
+                   model_resolution=(32, 32), disc_num_layers=2)
+CPU = ["--device", "cpu"]
+
+
+def _last_json(capsys):
+    out = capsys.readouterr().out.strip().splitlines()
+    return json.loads(out[-1])
+
+
+def _strict_loads(line):
+    def refuse(token):
+        raise ValueError(f"non-strict JSON token {token}")
+
+    return json.loads(line, parse_constant=refuse)
+
+
+def test_stabilize_synthetic_writes_video_and_fields(tmp_path, capsys):
+    out, wf = str(tmp_path / "out.avi"), str(tmp_path / "wf.npz")
+    rc = main(["stabilize", "--synthetic", "--frames", "10", "--height", "48",
+               "--width", "64", "--batch-windows", "4", "--output", out,
+               "--warp-fields", wf, "--warp-dtype", "float16", *MODEL, *CPU])
+    assert rc == 0
+    assert _last_json(capsys) == {"frames": 10, "shape": [10, 48, 64, 3], "output": out}
+    assert video_io.read_video(out)[0].shape == (10, 48, 64, 3)
+    flows = warp_fields.load_warp_fields(wf)
+    assert flows.shape == (10, 32, 32, 2) and flows.dtype == np.float16
+    np.testing.assert_array_equal(jax_warp_fields.load_warp_fields(wf), flows)
+    # the seed-0 generator of the CLI, on the seed-0 synthetic clip
+    _, clip = synthetic_pair_clip(10, 48, 64, seed=0)
+    st = Stabilizer(TINY, PipelineConfig(batch_windows=4, warp_field_dtype="float16"),
+                    device="cpu")
+    np.testing.assert_array_equal(st.stabilize_frames(clip)[1], flows)
+
+
+def test_train_tb_scalars_eval_ema_export_then_stabilize(tmp_path, capsys):
+    """train --synthetic with every logging flag and the eval hook; its
+    --export-params and its best-eval step load into stabilize."""
+    tb, log = str(tmp_path / "tb"), str(tmp_path / "scalars.jsonl")
+    exported, ck = str(tmp_path / "gen"), str(tmp_path / "ckpt")
+    rc = main(["train", "--synthetic", "--steps", "2", "--batch-size", "2",
+               "--log-every", "1", "--checkpoint-every", "2", "--checkpoint-dir", ck,
+               "--ema-decay", "0.9", "--tb-log-dir", tb, "--scalar-log", log,
+               "--eval-every", "2", "--export-params", exported, *MODEL, *CPU])
+    assert rc == 0
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("{")]
+    assert [m["step"] for m in lines if "loss_g" in m] == [1, 2]
+    assert [m["step"] for m in lines if "eval_stability" in m] == [2]
+    with open(log) as f:
+        assert [json.loads(ln) for ln in f] == lines
+    (events,) = glob.glob(tb + "/events.out.tfevents.*")
+    tags = {k for e in read_event_file(events) for k in e.get("scalars", {})}
+    assert {"loss_g", "loss_d", "eval_stability"} <= tags
+    # the export is the EMA copy, as is the best-eval export
+    sd = ckpt.load_generator_state_dict(exported)
+    assert all(torch.equal(v, ckpt.load_generator_state_dict(ck)[k]) for k, v in sd.items())
+    assert all(torch.equal(v, ckpt.load_generator_state_dict(ck, step="best")[k])
+               for k, v in sd.items())
+
+    for source in (["--checkpoint", exported], ["--checkpoint", ck, "--checkpoint-step", "best"],
+                   ["--checkpoint", ck, "--checkpoint-step", "2"]):
+        rc = main(["stabilize", "--synthetic", "--frames", "6", "--height", "48",
+                   "--width", "64", "--batch-windows", "3", *source, *MODEL, *CPU])
+        assert rc == 0 and _last_json(capsys)["frames"] == 6
+    with pytest.raises(FileNotFoundError, match="step 7"):
+        main(["stabilize", "--synthetic", "--frames", "6", "--checkpoint", ck,
+              "--checkpoint-step", "7", *MODEL, *CPU])
+
+
+def test_train_resume_continues(tmp_path, capsys):
+    ck = str(tmp_path / "ckpt")
+    args = ["train", "--synthetic", "--batch-size", "2", "--log-every", "1",
+            "--checkpoint-every", "1", "--checkpoint-dir", ck, *MODEL, *CPU]
+    assert main([*args, "--steps", "1"]) == 0
+    assert main([*args, "--steps", "2", "--resume"]) == 0
+    captured = capsys.readouterr()
+    assert json.dumps({"event": "resumed", "step": 1}) in captured.err
+    steps = [json.loads(ln)["step"] for ln in captured.out.splitlines() if ln.startswith("{")]
+    assert steps == [1, 2]
+    assert ckpt.latest_step(ck) == 2
+
+
+def test_export_writes_a_loadable_step(tmp_path, capsys):
+    out = str(tmp_path / "step.pt2")
+    rc = main(["export", "--output", out, "--height", "48", "--width", "64",
+               "--batch-windows", "4", *MODEL, *CPU])
+    assert rc == 0
+    assert _last_json(capsys) == {"artifact": out, "frame_hw": [48, 64], "batch_windows": 4}
+    step = ExportedStabilizerStep.load(out)
+    st = Stabilizer(TINY, PipelineConfig(batch_windows=4), device="cpu")
+    frames = torch.randint(0, 256, (4 + 2, 48, 64, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(0))
+    got, want = step(st.model.state_dict(), frames), st._chunk_step(frames)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_stabilize_video_then_apply_warp_reproduces_it(tmp_path, capsys):
+    src = str(tmp_path / "in.avi")
+    _, clip = synthetic_pair_clip(9, 48, 64, seed=2)
+    video_io.write_video(src, clip, 30.0, codec="MJPG")
+    out, wf = str(tmp_path / "out.mp4"), str(tmp_path / "wf.npz")
+    rc = main(["stabilize", "--input", src, "--output", out, "--warp-fields", wf,
+               "--batch-windows", "4", *MODEL, *CPU])
+    assert rc == 0
+    assert _last_json(capsys) == {"frames": 9, "fps": 30.0, "output": out, "warp_fields": wf}
+    redo = str(tmp_path / "redo.mp4")
+    rc = main(["apply-warp", "--input", src, "--warp-fields", wf, "--output", redo,
+               "--batch-frames", "4", *MODEL, *CPU])
+    assert rc == 0
+    assert _last_json(capsys) == {"frames": 9, "output": redo}
+    # the same frames, encoded by mp4v twice (the native runtime's OpenCV,
+    # then the Python bindings'): equal but for the two encoders' losses
+    a = video_io.read_video(redo, dtype=np.uint8)[0].astype(np.int32)
+    b = video_io.read_video(out, dtype=np.uint8)[0].astype(np.int32)
+    assert a.shape == b.shape == (9, 48, 64, 3)
+    assert np.abs(a - b).mean() < 2.0
+    short = str(tmp_path / "short.npz")
+    np.savez(short, warp_fields=np.zeros((12, 32, 32, 2), np.float32))
+    with pytest.raises(SystemExit) as info:
+        main(["apply-warp", "--input", src, "--warp-fields", short, "--output", redo,
+              *MODEL, *CPU])
+    assert info.value.code == 2
+    assert "has 9 frames but" in capsys.readouterr().err
+
+
+def test_eval_prints_strict_json(tmp_path, capsys):
+    """A 3-frame clip leaves the jitter unmeasured (NaN) and a clip
+    scored against itself has an infinite PSNR: both print as null."""
+    stable, unstable = synthetic_pair_clip(3, 96, 128, seed=4)
+    a, b = str(tmp_path / "a.avi"), str(tmp_path / "b.avi")
+    video_io.write_video(a, unstable, 30.0, codec="FFV1")
+    video_io.write_video(b, stable, 30.0, codec="FFV1")
+    assert main(["eval", "--input", a, "--original", b, "--ground-truth", a]) == 0
+    report = _strict_loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["jitter_rms_px"] is None and report["psnr_db"] is None
+    assert report["ssim"] == pytest.approx(1.0)
+    assert {"stability_score", "tracked_pair_fraction", "cropping_ratio",
+            "distortion_value", "original_stability_score"} <= set(report)
+
+
+def test_missing_input_output_is_a_usage_error(capsys):
+    assert main(["stabilize", *MODEL, *CPU]) == 2
+    assert "--input/--output required" in capsys.readouterr().err
+
+
+def test_commands_run_on_the_card_unless_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["stabilize", "--synthetic", "--frames", "4", *MODEL])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["export", "--output", "unused.pt2", *MODEL])
+
+
+@pytest.mark.parametrize("argv, module", [
+    (["stabilize", "--synthetic", "--frames", "4", "--data-parallel"], "parallel/"),
+    (["stabilize", "--synthetic", "--frames", "4", "--checkpoint", "ref.pth"],
+     "interop/torch_import.py"),
+    (["train", "--steps", "1"], "data/deepstab.py"),
+    (["train", "--synthetic", "--steps", "1", "--mesh-devices", "2"], "parallel/"),
+    (["make-data", "--out", "unused"], "data/deepstab.py"),
+    (["bench"], "utils/timing.py"),
+], ids=["data-parallel", "pth-checkpoint", "deepstab", "mesh-devices", "make-data", "bench"])
+def test_unported_flags_name_their_roadmap_item(argv, module):
+    if argv[0] in ("stabilize", "train"):
+        argv = [*argv, *MODEL, *CPU]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item") as info:
+        main(argv)
+    assert module in str(info.value)

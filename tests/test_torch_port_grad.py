@@ -238,8 +238,10 @@ class _RefusingLibrary:
 def test_refused_launch_names_the_limits(kernel, monkeypatch):
     """Each wrapper turns a refused launch into an error that names its
     kernel and the limits shared by all three kernels' C interface, and
-    does not count it.  CPU-side: the wrappers are taken past their CPU
-    dispatch onto a library that refuses, so nothing launches."""
+    does not count it.  CPU-side: the forward operators' CUDA
+    implementations, and the d/dgrid wrapper taken past its CPU dispatch,
+    run on CPU tensors against a library that refuses, so nothing
+    launches."""
     from types import SimpleNamespace
 
     monkeypatch.setattr(K, "_on_cpu", lambda image, grid: False)
@@ -250,8 +252,8 @@ def test_refused_launch_names_the_limits(kernel, monkeypatch):
     img = torch.zeros(1, 4, 4, 3)
     grid = torch.zeros(1, 4, 4, 2)
     call = {
-        "grid_sample_f32": lambda: K.grid_sample_f32(img, grid),
-        "grid_sample_packed_u8": lambda: K.grid_sample_packed_u8(img.to(torch.uint8), grid),
+        "grid_sample_f32": lambda: K._f32_cuda(img, grid, False, True),
+        "grid_sample_packed_u8": lambda: K._packed_u8_cuda(img.to(torch.uint8), grid, True),
         "grid_sample_grad_f32": lambda: K.grid_sample_grad_f32(img, grid, torch.zeros(1, 4, 4, 3)),
     }[kernel]
     with pytest.raises(RuntimeError) as info:

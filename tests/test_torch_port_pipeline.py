@@ -176,12 +176,13 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
 def test_port_imports_nothing_of_jax():
     """Importing every module of the port (and chip_smoke.py,
     kernel_ab.py) leaves jax, flax and pwstablenet_tpu out of
-    sys.modules."""
+    sys.modules; importing ``cli.__main__`` does not run the CLI."""
     code = r"""
 import importlib, pkgutil, sys
 import pwstablenet_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-assert len(names) >= 12, names
+assert len(names) >= 38, names
+assert "pwstablenet_tpu_torch.cli.__main__" in names, names
 for name in names:
     importlib.import_module(name)
 import chip_smoke, kernel_ab
@@ -197,3 +198,24 @@ print(len(names))
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def test_cli_help_runs_without_jax():
+    """``python -m pwstablenet_tpu_torch.cli --help`` exits 0 with
+    JAX_PLATFORMS unset, and imports (``-X importtime``) no jax, flax or
+    pwstablenet_tpu module."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "JAX_PLATFORMS")}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "pwstablenet_tpu_torch.cli", "--help"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "stabilize" in proc.stdout and "apply-warp" in proc.stdout
+    imported = [ln.rsplit("|", 1)[-1].strip() for ln in proc.stderr.splitlines()
+                if ln.startswith("import time:")]
+    assert "pwstablenet_tpu_torch.cli.main" in imported
+    bad = sorted(m for m in imported
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "pwstablenet_tpu"))
+    assert not bad, bad

@@ -380,9 +380,10 @@ def test_train_needs_a_card_or_an_explicit_cpu(monkeypatch, tmp_path):
         train(cfg, tcfg, iter([]), max_steps=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         create_train_state(cfg, tcfg)
-    with pytest.raises(NotImplementedError, match="tb_writer"):
-        train(cfg, dataclasses.replace(tcfg, tb_log_dir=str(tmp_path)), iter([]),
-              device="cpu")
+    # TensorBoard logs are ported: on the CPU, the writer opens its file
+    train(cfg, dataclasses.replace(tcfg, tb_log_dir=str(tmp_path / "tb")), iter([]),
+          max_steps=0, device="cpu")
+    assert len(os.listdir(tmp_path / "tb")) == 1
     with pytest.raises(NotImplementedError, match="parallel"):
         train(cfg, tcfg, iter([]), mesh_cfg=MeshConfig(num_devices=2), device="cpu")
 
