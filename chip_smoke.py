@@ -5,7 +5,8 @@
 
 Phases, each printing one JSON line:
 
-1. device  - requires a CUDA card (exits non-zero without one).
+1. device  - requires a CUDA card (exits non-zero without one); prints
+             whether ``ml_dtypes`` (bfloat16 warp fields) is installed.
 2. build   - builds the CUDA kernels from ``pwstablenet_tpu_torch/csrc``.
 3. kernels - each kernel against its plain PyTorch version on the card:
              ``grid_sample_f32`` at (8,256,256,3) and, on a random and on
@@ -35,9 +36,19 @@ Phases, each printing one JSON line:
              ``TrainConfig(batch_size=8)`` (bf16, 256x256) on the port's
              synthetic batches for 5 steps: losses finite, G and D
              changed, the d/dgrid kernel launched 3 times a step and the
-             f32 sample kernel launched.  Then one f32 step (TF32 off) at
-             a tiny config on the card and on the CPU from one state and
-             batch: metrics rtol 1e-4, parameters within 1e-6 on 99.9 %.
+             f32 sample kernel launched.
+             ``train_deepstab``: the same training from video files on
+             disk: ``make-data`` in process writes 2 pairs of 40 MJPG
+             frames of 360x640 (read back: the card's OpenCV must write
+             and read MJPG), and ``train()`` takes 5 steps from
+             ``batch_iterator(DeepStabDataset(...))`` with scale jitter
+             (1.0, 1.25) and 4 decode threads, with the same checks;
+             seconds and ``sec_per_step`` beside the synthetic phase's,
+             the make-data seconds, the loader alone in batches/s at 1, 2
+             and 4 decode threads, and the pinned copy of one batch.
+             Then one f32 step (TF32 off) at a tiny config on the card
+             and on the CPU from one state and batch: metrics rtol 1e-4,
+             parameters within 1e-6 on 99.9 %.
 6. surface - the user-facing surface (run after the inference timings,
              before training), on the main path's Stabilizer and clip,
              each line with the kernel launches made during it:
@@ -62,7 +73,11 @@ Phases, each printing one JSON line:
              ``export`` (720p), ``train --synthetic`` (tiny model, 2
              steps, ``--tb-log-dir``, ``--scalar-log``): exit 0, their
              JSON lines, the event file read back, d/dgrid launched 6
-             times;
+             times; ``make-data`` (a tiny tree) and ``train --data-root``
+             on it (tiny model, 2 steps, ``--eval-every 2 --eval-clip``
+             one of its unstable videos): exit 0, the eval line, d/dgrid
+             launched 6 times and the packed kernel by the eval hook;
+             ``--eval-every`` without ``--eval-clip``: exit 2;
              ``surface_video``: a 24-frame 720p FFV1 file through
              ``stabilize_video`` (the native decoder where its runtime
              builds and loads, else OpenCV's Python path, as on the
@@ -90,6 +105,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -355,9 +371,46 @@ def surface(torch, np, st, clip, out, flows, work) -> None:
     with open(scalars) as f:
         check(len(f.readlines()) == 2, "cli train: 2 scalar lines")
     check(launches["grid_sample_grad_f32"] == 6, f"cli train launches {launches}")
-    emit("surface_cli", stabilize=cli_stab, export=cli_export,
-         train={"line": line, "seconds": secs, "launches": launches,
-                "tb_events": len(events), "tb_tags": sorted(tags)})
+    cli_train = {"line": line, "seconds": secs, "launches": launches,
+                 "tb_events": len(events), "tb_tags": sorted(tags)}
+    # make-data, then train from that tree with the eval hook on one of
+    # its unstable videos (a uint8 clip: the packed kernel)
+    tree = os.path.join(work, "tree")
+    line, _, secs, _ = run_cli(["make-data", "--out", tree, "--pairs", "2", "--frames", "12",
+                                "--height", "48", "--width", "64", "--seed", str(SEED)])
+    check(line["root"] == tree and len(os.listdir(os.path.join(tree, "unstable"))) == 2,
+          f"cli make-data: {line}")
+    cli_make = {"line": line, "seconds": secs}
+    tiny_model = ["--temporal-window", "3", "--num-levels", "4", "--base-features", "8",
+                  "--max-features", "16", "--model-height", "32", "--model-width", "32",
+                  "--disc-layers", "2"]
+    eval_clip = os.path.join(tree, "unstable", "01.avi")
+    line, lines, secs, launches = run_cli(
+        ["train", "--data-root", tree, "--steps", "2", "--batch-size", "2", "--log-every", "1",
+         "--eval-every", "2", "--eval-clip", eval_clip, *tiny_model,
+         "--checkpoint-dir", os.path.join(work, "ckpt_deepstab")])
+    logged = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    check([m["step"] for m in logged if "loss_g" in m] == [1, 2]
+          and [m["step"] for m in logged if "eval_stability" in m] == [2]
+          and all(math.isfinite(v) for m in logged if "loss_g" in m for v in m.values()),
+          f"cli train --data-root: {logged}")
+    check(launches["grid_sample_grad_f32"] == 6 and launches["grid_sample_packed_u8"] > 0,
+          f"cli train --data-root launches {launches}")
+    cli_deepstab = {"line": line, "eval": [m for m in logged if "eval_stability" in m][0],
+                    "seconds": secs, "launches": launches}
+    # --eval-every without --eval-clip: the usage error, exit 2
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
+        try:
+            code = cli(["train", "--data-root", tree, "--steps", "1", "--eval-every", "2",
+                        *tiny_model])
+        except SystemExit as e:
+            code = e.code
+    check(code == 2 and "needs BOTH --eval-every and --eval-clip" in err.getvalue(),
+          f"cli train pairing check: exit {code}, {err.getvalue()[-300:]}")
+    emit("surface_cli", stabilize=cli_stab, export=cli_export, train=cli_train,
+         make_data=cli_make, train_data_root=cli_deepstab,
+         eval_pairing_error={"exit": code, "stderr": err.getvalue().strip()})
 
     # stabilize_video on a video file: 24 lossless (FFV1) 720p frames
     src = os.path.join(work, "in.avi")
@@ -384,6 +437,105 @@ def surface(torch, np, st, clip, out, flows, work) -> None:
          native_runtime=native, bitwise_equal_to_stabilize_frames=True)
 
 
+def train_deepstab(torch, np, cfg, tcfg, before, steps, synthetic) -> None:
+    """``train()`` of the full model from video files on disk: a tree
+    written by ``make-data`` (2 pairs of 40 MJPG frames of 360x640), read
+    by ``DeepStabDataset`` with scale jitter and 4 decode threads.
+    ``before`` holds the initial parameters (``train()`` starts from the
+    same seed); ``synthetic`` the synthetic ``train`` phase's readings,
+    printed beside these.  Also the loader alone, on the host, in
+    batches/s at 1, 2 and 4 decode threads, and the pinned copy of one
+    batch to the card."""
+    import contextlib
+    import io
+
+    from pwstablenet_tpu_torch.cli.main import main as cli
+    from pwstablenet_tpu_torch.config import DataConfig
+    from pwstablenet_tpu_torch.data import video_io
+    from pwstablenet_tpu_torch.data.deepstab import DeepStabDataset, batch_iterator
+    from pwstablenet_tpu_torch.kernels import grid_sample as K
+    from pwstablenet_tpu_torch.train.loop import batch_to_device, train
+
+    with tempfile.TemporaryDirectory() as work:
+        tree = os.path.join(work, "tree")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(["make-data", "--out", tree, "--pairs", "2", "--frames", "40",
+                      "--height", "360", "--width", "640", "--seed", str(SEED)])
+        make_s = time.perf_counter() - t0
+        check(rc == 0, f"make-data exit {rc}")
+        # the card's OpenCV must write and read MJPG
+        for sub in ("stable", "unstable"):
+            frames, _ = video_io.read_video(os.path.join(tree, sub, "00.avi"), dtype=np.uint8)
+            check(frames.shape == (40, 360, 640, 3) and frames.std() > 1.0,
+                  f"MJPG {sub}/00.avi read back as {frames.shape}")
+        tree_mb = sum(os.path.getsize(os.path.join(r, f))
+                      for r, _, fs in os.walk(tree) for f in fs) / 1e6
+        data_cfg = DataConfig(data_root=tree, resize_scale_range=(1.0, 1.25),
+                              num_decode_threads=4)
+
+        # the loader alone: 6 batches after a warm one, at each thread count
+        loader, batch = {}, None
+        for threads in (1, 2, 4):
+            ds = DeepStabDataset(dataclasses.replace(data_cfg, num_decode_threads=threads),
+                                 cfg.temporal_window)
+            it = batch_iterator(ds, tcfg.batch_size, seed=SEED)
+            next(it)
+            t0 = time.perf_counter()
+            for _ in range(6):
+                batch = next(it)
+            loader[str(threads)] = 6 / (time.perf_counter() - t0)
+            it.close()
+        n, (h, w) = tcfg.batch_size, cfg.model_resolution
+        check(batch["stacks"].shape == (n, 2, h, w, 3 * cfg.temporal_window)
+              and batch["stable"].shape == (n, 2, h, w, 3)
+              and batch["stacks"].dtype == batch["stable"].dtype == np.uint8,
+              f"loader batch {[(k, v.shape, v.dtype) for k, v in batch.items()]}")
+        batch_mb = sum(v.nbytes for v in batch.values()) / 1e6
+        h2d_ms = []
+        for _ in range(5):  # what train() does with each batch: pin, copy
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch_to_device(batch, torch.device("cuda"))
+            torch.cuda.synchronize()
+            h2d_ms.append((time.perf_counter() - t0) * 1e3)
+
+        logged = []
+        it = batch_iterator(DeepStabDataset(data_cfg, cfg.temporal_window),
+                            tcfg.batch_size, seed=SEED)
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                state = train(cfg, dataclasses.replace(tcfg, checkpoint_dir=ckpt_dir), it,
+                              max_steps=steps, log_fn=logged.append)
+                torch.cuda.synchronize()
+            finally:
+                it.close()
+            secs = time.perf_counter() - t0
+            launches = dict(K.LAUNCHES)
+    check(len(logged) == steps and state.step == steps, f"deepstab steps {state.step}")
+    check(all(np.isfinite(v) for m in logged for v in m.values()), f"deepstab metrics {logged}")
+    changed = {m: sum(not torch.equal(before[m][n_], p)
+                      for n_, p in getattr(state, m).named_parameters())
+               for m in ("g", "d")}
+    check(changed["d"] == len(before["d"]) and changed["g"] > 0
+          and not torch.equal(before["g"]["stage1.head.weight"], state.g.stage1.head.weight),
+          f"deepstab parameters changed: {changed}")
+    check(launches["grid_sample_grad_f32"] == 3 * steps and launches["grid_sample_f32"] > 0,
+          f"deepstab kernel launches {launches}")
+    emit("train_deepstab", steps=steps, seconds=secs,
+         sec_per_step=[m["sec_per_step"] for m in logged], synthetic=synthetic,
+         launches=launches, tensors_changed=changed, batch_size=tcfg.batch_size,
+         make_data_seconds=make_s, make_data_line=json.loads(buf.getvalue().splitlines()[-1]),
+         tree_mb=tree_mb, loader_batches_per_s_by_threads=loader, batch_mb=batch_mb,
+         pinned_h2d_ms=statistics.median(h2d_ms), pinned_h2d_ms_each=h2d_ms,
+         resize_scale_range=list(data_cfg.resize_scale_range),
+         decode_threads=data_cfg.num_decode_threads, first=logged[0], last=logged[-1])
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -401,9 +553,14 @@ def main() -> int:
     from pwstablenet_tpu_torch.pipeline import Stabilizer
 
     smi = nvidia_smi()
+    try:  # bfloat16 warp fields need it (PipelineConfig.warp_field_dtype)
+        import ml_dtypes
+        ml_dtypes_version = ml_dtypes.__version__
+    except ImportError:
+        ml_dtypes_version = None
     emit("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi,
-         torch=torch.__version__, cuda=torch.version.cuda)
+         torch=torch.__version__, cuda=torch.version.cuda, ml_dtypes=ml_dtypes_version)
 
     # ---- 2. build ---------------------------------------------------
     t0 = time.perf_counter()
@@ -693,12 +850,14 @@ def main() -> int:
           and train_launches["grid_sample_f32"] > 0
           and train_launches["grid_sample_packed_u8"] == 0,
           f"train kernel launches {train_launches}")
-    del before
     emit("train", steps=train_steps, seconds=train_s, launches=train_launches,
          tensors_changed=changed, n_tensors={"g": len(dict(tstate.g.named_parameters())),
                                              "d": len(dict(tstate.d.named_parameters()))},
          batch_size=tcfg.batch_size, compute_dtype=cfg.compute_dtype,
          first=logged[0], last=logged[-1])
+    train_deepstab(torch, np, cfg, tcfg, before, train_steps,
+                   {"seconds": train_s, "sec_per_step": [m["sec_per_step"] for m in logged]})
+    del before
 
     # one f32 step (TF32 off) at a tiny config on the card and on the
     # CPU, from one state and batch

@@ -2,6 +2,8 @@
 subcommands with the same flags, each printing one JSON line on stdout.
 
     python -m pwstablenet_tpu_torch.cli stabilize --input shaky.avi --output out.mp4
+    python -m pwstablenet_tpu_torch.cli make-data --out DeepStab --pairs 8
+    python -m pwstablenet_tpu_torch.cli train --data-root DeepStab --steps 1000
     python -m pwstablenet_tpu_torch.cli train --synthetic --steps 1000
     python -m pwstablenet_tpu_torch.cli stabilize --synthetic --frames 24 --device cpu
 
@@ -155,12 +157,9 @@ def cmd_stabilize(args) -> int:
 
 
 def cmd_train(args) -> int:
-    from pwstablenet_tpu_torch.config import MeshConfig, TrainConfig
+    from pwstablenet_tpu_torch.config import DataConfig, MeshConfig, TrainConfig
     from pwstablenet_tpu_torch.train.loop import synthetic_batch_iterator, train
 
-    if not args.synthetic:
-        raise _unported("training on DeepStab (without --synthetic)",
-                        "data/deepstab.py", 14)
     if args.mesh_devices > 1:
         raise _unported(f"--mesh-devices {args.mesh_devices} (data-parallel training)",
                         "parallel/", 11)
@@ -187,16 +186,47 @@ def cmd_train(args) -> int:
         seed=args.seed,
     )
     eval_fn = None
-    if args.eval_every > 0:
-        from pwstablenet_tpu_torch.data.synthetic import RICH, synthetic_pair_clip
-        from pwstablenet_tpu_torch.eval.hooks import make_clip_eval_hook
+    if args.synthetic:
+        batches = synthetic_batch_iterator(model_cfg, train_cfg, rich=args.rich)
+        if args.eval_every > 0:
+            from pwstablenet_tpu_torch.data.synthetic import RICH, synthetic_pair_clip
+            from pwstablenet_tpu_torch.eval.hooks import make_clip_eval_hook
 
-        stable, unstable = synthetic_pair_clip(
-            24, 96, 128, seed=10_000, **(RICH if args.rich else {})
+            stable, unstable = synthetic_pair_clip(
+                24, 96, 128, seed=10_000, **(RICH if args.rich else {})
+            )
+            eval_fn = make_clip_eval_hook(model_cfg, unstable, stable_clip=stable,
+                                          batch_windows=4)
+    else:
+        if (args.eval_every > 0) != bool(args.eval_clip):
+            # one without the other would silently give no periodic eval
+            print(
+                "pwstablenet train: error: DeepStab mode needs BOTH "
+                "--eval-every and --eval-clip for periodic eval "
+                "(got only one)",
+                file=sys.stderr,
+            )
+            raise SystemExit(2)
+        from pwstablenet_tpu_torch.data.deepstab import DeepStabDataset, batch_iterator
+
+        data_cfg = DataConfig(
+            data_root=args.data_root,
+            crop_size=model_cfg.model_resolution,
+            resize_scale_range=tuple(args.resize_scale),
+            num_decode_threads=args.decode_threads,
         )
-        eval_fn = make_clip_eval_hook(model_cfg, unstable, stable_clip=stable, batch_windows=4)
+        ds = DeepStabDataset(data_cfg, model_cfg.temporal_window,
+                             temporal_center=model_cfg.temporal_center)
+        if args.eval_every > 0:
+            import numpy as np
+
+            from pwstablenet_tpu_torch.data.video_io import read_video
+            from pwstablenet_tpu_torch.eval.hooks import make_clip_eval_hook
+
+            clip, _ = read_video(args.eval_clip, max_frames=60, dtype=np.uint8)
+            eval_fn = make_clip_eval_hook(model_cfg, clip)
+        batches = batch_iterator(ds, train_cfg.batch_size, seed=args.seed)
     mesh_cfg = MeshConfig(num_devices=args.mesh_devices) if args.mesh_devices > 0 else None
-    batches = synthetic_batch_iterator(model_cfg, train_cfg, rich=args.rich)
     try:
         state = train(
             model_cfg, train_cfg, batches, mesh_cfg=mesh_cfg, resume=args.resume,
@@ -290,7 +320,28 @@ def cmd_eval(args) -> int:
 
 
 def cmd_make_data(args) -> int:
-    raise _unported("make-data", "data/deepstab.py (write_synthetic_deepstab)", 18)
+    """Write a synthetic DeepStab-shaped dataset on disk."""
+    from pwstablenet_tpu_torch.data.deepstab import write_synthetic_deepstab
+
+    write_synthetic_deepstab(
+        args.out,
+        num_pairs=args.pairs,
+        frames=args.frames,
+        height=args.height,
+        width=args.width,
+        seed=args.seed,
+        rich=args.rich,
+        curriculum=args.curriculum,
+        texture_detail_px=args.texture_detail_px,
+    )
+    print(json.dumps({
+        "root": args.out, "pairs": args.pairs, "frames": args.frames,
+        "height": args.height, "width": args.width,
+        "rich": args.rich or args.curriculum,
+        "curriculum": args.curriculum,
+        "texture_detail_px": args.texture_detail_px,
+    }))
+    return 0
 
 
 def cmd_bench(args) -> int:
@@ -331,10 +382,12 @@ def build_parser() -> argparse.ArgumentParser:
 
     t = sub.add_parser("train", help="adversarial training")
     _add_model_args(t)
-    t.add_argument("--data-root", default="DeepStab")
+    t.add_argument("--data-root", default="DeepStab",
+                   help="DeepStab-shaped tree of <root>/{stable,unstable}/"
+                        "*.avi pairs (make-data writes one)")
     t.add_argument("--synthetic", action="store_true",
-                   help="train on procedural batches (DeepStab data is "
-                        "not ported yet)")
+                   help="train on procedural batches made in memory "
+                        "instead of --data-root")
     t.add_argument("--rich", action="store_true",
                    help="full synthetic scene model (perspective shake, "
                         "parallax, occluders, photometric jitter) for "
@@ -423,17 +476,30 @@ def build_parser() -> argparse.ArgumentParser:
 
     d = sub.add_parser(
         "make-data",
-        help="write a synthetic DeepStab-shaped dataset (not ported yet)",
+        help="write a synthetic DeepStab-shaped dataset "
+             "(<out>/{stable,unstable}/*.avi pairs)",
     )
     d.add_argument("--out", required=True)
-    d.add_argument("--rich", action="store_true")
-    d.add_argument("--curriculum", action="store_true")
+    d.add_argument("--rich", action="store_true",
+                   help="full scene model: perspective shake, parallax "
+                        "layers, moving occluders, photometric jitter, "
+                        "per-pair motion diversity")
+    d.add_argument("--curriculum", action="store_true",
+                   help="rich scene model with the curriculum stressor "
+                        "ranges (shake to 16 px, pan to 2.5, 1-4 "
+                        "occluders, exposure steps to 2.0); train on it "
+                        "with --pixel-loss-mode mean_matched, since plain "
+                        "l1 on exposure-stepped data distorts the warps")
     d.add_argument("--pairs", type=int, default=4)
     d.add_argument("--frames", type=int, default=60)
     d.add_argument("--height", type=int, default=288)
     d.add_argument("--width", type=int, default=384)
     d.add_argument("--seed", type=int, default=0)
-    d.add_argument("--texture-detail-px", type=float, default=0.0)
+    d.add_argument("--texture-detail-px", type=float, default=0.0,
+                   help="add fine texture octaves down to ~this pixel "
+                        "scale at native resolution (0 = off). Needed "
+                        "for meaningful clips above ~480p, where the "
+                        "base octaves alone leave the world featureless")
     d.set_defaults(fn=cmd_make_data)
     return p
 

@@ -1,9 +1,9 @@
 """Typed configuration.
 
 A copy of the JAX package's ``ModelConfig``, ``TrainConfig``,
-``MeshConfig`` and ``PipelineConfig`` (same fields, defaults and
-validation), kept here so the port depends on nothing of the JAX
-package.  Data configuration arrives with the slice that uses it.
+``DataConfig``, ``MeshConfig`` and ``PipelineConfig`` (same fields,
+defaults and validation), kept here so the port depends on nothing of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -172,6 +172,25 @@ class TrainConfig:
     debug_nans: bool = False
     # debug flag: raise at this step to exercise resume
     fault_inject_step: int = -1
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """DeepStab pairing and the host-side loader (``data.deepstab``)."""
+
+    data_root: str = "DeepStab"
+    stable_dir: str = "stable"
+    unstable_dir: str = "unstable"
+    crop_size: Tuple[int, int] = (256, 256)
+    random_flip: bool = True
+    # shared random scale jitter applied before the crop; (1.0, 1.0)
+    # disables it. The lower bound is clamped so the crop always fits.
+    resize_scale_range: Tuple[float, float] = (1.0, 1.0)
+    frame_stride: int = 1             # stride between temporal neighbours
+    prefetch_depth: int = 2           # batches queued ahead of the loop
+    # decode worker threads per batch (deepstab.batch_iterator)
+    num_decode_threads: int = 2
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

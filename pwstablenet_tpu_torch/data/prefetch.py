@@ -13,12 +13,13 @@ class Prefetcher:
     """Runs ``it`` on a daemon thread, at most ``depth`` items ahead; an
     exception in the producer is raised in the consumer.  ``close()``
     stops the thread (an endless producer otherwise keeps making items
-    until the queue is full); after it the iterator yields what is
-    already queued, then ends."""
+    until the queue is full) and then closes ``it``; after it the
+    iterator yields what is already queued, then ends."""
 
     _DONE = object()
 
     def __init__(self, it: Iterator, depth: int = 2):
+        self._it = it
         self._q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
         self._err: Optional[BaseException] = None
         self._stop = threading.Event()
@@ -66,6 +67,10 @@ class Prefetcher:
 
     def close(self, timeout: float = 10.0) -> None:
         """Stop the producer thread and wait for it (at most ``timeout``
-        seconds beyond the item it is making)."""
+        seconds beyond the item it is making); then close the producer
+        when it is a generator, so its ``finally`` and ``with`` blocks
+        run (e.g. a worker pool shuts down)."""
         self._stop.set()
         self._thread.join(timeout)
+        if not self._thread.is_alive() and hasattr(self._it, "close"):
+            self._it.close()

@@ -10,7 +10,10 @@ chunks into a stored (deflate-free) ``.npz``: each chunk becomes an
 ``arr_NNNNN.npy`` zip member, so memory stays O(chunk).
 
 ``load_warp_fields`` reads both layouts: chunked files from this
-writer and legacy single-key ``warp_fields`` archives.
+writer and legacy single-key ``warp_fields`` archives.  numpy stores
+bfloat16 fields (``ml_dtypes.bfloat16``) as raw 2-byte voids; the loader
+gives them back as bfloat16, where the JAX package's loader returns the
+voids.
 """
 
 from __future__ import annotations
@@ -50,12 +53,29 @@ class WarpFieldWriter:
         self.close()
 
 
+def bfloat16() -> np.dtype:
+    """numpy's bfloat16, from ``ml_dtypes`` (the dtype the JAX package
+    returns bfloat16 warp fields in), imported only when asked for."""
+    try:
+        import ml_dtypes
+    except ImportError:
+        raise RuntimeError(
+            "bfloat16 warp fields need the ml_dtypes package (numpy has no "
+            "bfloat16); install it or use float32 or float16 fields"
+        ) from None
+    return np.dtype(ml_dtypes.bfloat16)
+
+
 def load_warp_fields(path: str) -> np.ndarray:
     """Concatenate a warp-field archive (chunked or legacy layout)."""
     with np.load(path) as data:
         if "warp_fields" in data:
-            return data["warp_fields"]
-        keys = sorted(k for k in data.files if k.startswith("arr_"))
-        if not keys:
-            raise ValueError(f"{path!r} holds no warp fields")
-        return np.concatenate([data[k] for k in keys])
+            flows = data["warp_fields"]
+        else:
+            keys = sorted(k for k in data.files if k.startswith("arr_"))
+            if not keys:
+                raise ValueError(f"{path!r} holds no warp fields")
+            flows = np.concatenate([data[k] for k in keys])
+    if flows.dtype == np.dtype("V2"):  # how numpy saves bfloat16
+        flows = flows.view(bfloat16())
+    return flows

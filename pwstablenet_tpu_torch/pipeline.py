@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from pwstablenet_tpu_torch.config import ModelConfig, PipelineConfig
+from pwstablenet_tpu_torch.data.warp_fields import bfloat16
 from pwstablenet_tpu_torch.models.generator import CascadedGenerator
 from pwstablenet_tpu_torch.ops.pixels import from_unit, to_unit
 from pwstablenet_tpu_torch.ops.warp import warp_image
@@ -53,6 +54,14 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as numpy; bfloat16 as an ``ml_dtypes.bfloat16`` view
+    of the same bytes (torch's ``.numpy()`` refuses bfloat16)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(bfloat16())
+    return t.numpy()
+
+
 class _Pending:
     """A dispatched chunk: device results copying back to the host."""
 
@@ -73,7 +82,7 @@ class _Pending:
     def result(self) -> Tuple[np.ndarray, np.ndarray]:
         if self.event is not None:
             self.event.synchronize()
-        stab, flow = self.stab.numpy(), self.flow.numpy()
+        stab, flow = self.stab.numpy(), _to_numpy(self.flow)
         if self.pad:
             stab, flow = stab[: -self.pad], flow[: -self.pad]
         return stab, flow
@@ -98,6 +107,8 @@ class Stabilizer:
         self.device = resolve_device(device)
         self.model_cfg = model_cfg or ModelConfig()
         self.pipeline_cfg = pipeline_cfg or PipelineConfig()
+        if self.pipeline_cfg.warp_field_dtype == "bfloat16":
+            bfloat16()  # without ml_dtypes, refuse here, not at the first chunk
         gen = torch.Generator().manual_seed(seed)
         model = CascadedGenerator(self.model_cfg, generator=gen)
         if state_dict is not None:
@@ -157,7 +168,8 @@ class Stabilizer:
             transport format) or float32 in [-1, 1].
         Returns:
           (stabilized (time, H, W, 3) in the input dtype, warp fields
-          (time, h, w, 2) normalized displacements at model resolution).
+          (time, h, w, 2) normalized displacements at model resolution,
+          in ``warp_field_dtype``; bfloat16 as ``ml_dtypes.bfloat16``).
         """
         outs, flows = [], []
         for s, f in self._stream(iter([frames]), batch_windows):
@@ -369,7 +381,8 @@ def apply_warp_fields(
     Args:
       frames: (T, H, W, 3) original clip, uint8 or [-1, 1] float32.
       flows: (T, h, w, 2) normalized displacement fields (any model
-        resolution; upsampled to the frame size on the device).
+        resolution; upsampled to the frame size on the device), float32,
+        float16 or ``ml_dtypes.bfloat16``.
       model_cfg: warp semantics source (padding mode, align corners).
       batch_frames: frames per device step.
     Returns:
@@ -386,7 +399,10 @@ def apply_warp_fields(
     outs = []
     for i in range(0, frames.shape[0], n):
         f = _to_device(frames[i : i + n], device)
-        fl = _to_device(flows[i : i + n], device).to(torch.float32)
+        fl = flows[i : i + n]
+        if fl.dtype.name == "bfloat16":  # torch takes no numpy bfloat16
+            fl = fl.astype(np.float32)
+        fl = _to_device(fl, device).to(torch.float32)
         out = warp_image(
             f, fl, padding_mode=cfg.padding_mode, align_corners=cfg.align_corners
         )

@@ -10,11 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+from pwstablenet_tpu.cli import main as jax_main
 from pwstablenet_tpu.data import warp_fields as jax_warp_fields
 
 from pwstablenet_tpu_torch.cli import main
-from pwstablenet_tpu_torch.config import ModelConfig, PipelineConfig
+from pwstablenet_tpu_torch.config import DataConfig, ModelConfig, PipelineConfig
 from pwstablenet_tpu_torch.data import video_io, warp_fields
+from pwstablenet_tpu_torch.data.deepstab import DeepStabDataset
 from pwstablenet_tpu_torch.data.synthetic import synthetic_pair_clip
 from pwstablenet_tpu_torch.export import ExportedStabilizerStep
 from pwstablenet_tpu_torch.pipeline import Stabilizer
@@ -151,6 +153,68 @@ def test_stabilize_video_then_apply_warp_reproduces_it(tmp_path, capsys):
     assert "has 9 frames but" in capsys.readouterr().err
 
 
+@pytest.fixture(scope="module")
+def tree(tmp_path_factory):
+    """A tiny make-data tree: 2 pairs of 12 frames of 40x56."""
+    path = str(tmp_path_factory.mktemp("tree"))
+    assert main(["make-data", "--out", path, "--pairs", "2", "--frames", "12",
+                 "--height", "40", "--width", "56", "--seed", "1"]) == 0
+    return path
+
+
+@pytest.mark.parametrize("flags", [[], ["--rich", "--texture-detail-px", "4"], ["--curriculum"]],
+                         ids=["plain", "rich-texture", "curriculum"])
+def test_make_data_matches_reference(tmp_path, capsys, flags):
+    size = ["--pairs", "2", "--frames", "8", "--height", "40", "--width", "56", "--seed", "2"]
+    ours, ref = str(tmp_path / "port"), str(tmp_path / "jax")
+    assert main(["make-data", "--out", ours, *size, *flags]) == 0
+    line = _last_json(capsys)
+    assert jax_main(["make-data", "--out", ref, *size, *flags]) == 0
+    assert line == {**_last_json(capsys), "root": ours}
+    ds = DeepStabDataset(DataConfig(data_root=ours, crop_size=(32, 32)), 3)
+    assert len(ds.pairs) == 2
+    for sub in ("stable/00.avi", "unstable/01.avi"):
+        np.testing.assert_array_equal(video_io.read_video(f"{ours}/{sub}", dtype=np.uint8)[0],
+                                      video_io.read_video(f"{ref}/{sub}", dtype=np.uint8)[0])
+
+
+def test_train_from_data_root(tree, tmp_path, capsys):
+    rc = main(["train", "--data-root", tree, "--steps", "2", "--batch-size", "2",
+               "--log-every", "1", "--resize-scale", "1.0", "1.2", "--decode-threads", "3",
+               "--checkpoint-dir", str(tmp_path / "ckpt"), *MODEL, *CPU])
+    assert rc == 0
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
+    assert [m["step"] for m in lines] == [1, 2]
+    assert all(np.isfinite(m["loss_g"]) and np.isfinite(m["loss_d"]) for m in lines)
+    assert ckpt.latest_step(str(tmp_path / "ckpt")) == 2
+
+
+def test_train_from_data_root_with_eval_clip(tree, tmp_path, capsys):
+    rc = main(["train", "--data-root", tree, "--steps", "2", "--batch-size", "2",
+               "--log-every", "1", "--eval-every", "2",
+               "--eval-clip", f"{tree}/unstable/01.avi",
+               "--checkpoint-dir", str(tmp_path / "ckpt"), *MODEL, *CPU])
+    assert rc == 0
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
+    evals = [m for m in lines if "eval_stability" in m]
+    assert [m["step"] for m in evals] == [2]
+    assert {"eval_stability", "eval_stability_unstable"} <= set(evals[0])
+
+
+@pytest.mark.parametrize("flags", [["--eval-every", "2"], ["--eval-clip", "clip.avi"]],
+                         ids=["eval-every-alone", "eval-clip-alone"])
+def test_eval_flags_come_in_pairs(tree, capsys, flags):
+    argv = ["train", "--data-root", tree, "--steps", "1", *flags]
+    with pytest.raises(SystemExit) as info:
+        main([*argv, *MODEL, *CPU])
+    assert info.value.code == 2
+    err = capsys.readouterr().err
+    assert "DeepStab mode needs BOTH --eval-every and --eval-clip" in err
+    with pytest.raises(SystemExit) as info:
+        jax_main(argv)
+    assert info.value.code == 2 and capsys.readouterr().err == err
+
+
 def test_eval_prints_strict_json(tmp_path, capsys):
     """A 3-frame clip leaves the jitter unmeasured (NaN) and a clip
     scored against itself has an infinite PSNR: both print as null."""
@@ -183,11 +247,9 @@ def test_commands_run_on_the_card_unless_asked(monkeypatch):
     (["stabilize", "--synthetic", "--frames", "4", "--data-parallel"], "parallel/"),
     (["stabilize", "--synthetic", "--frames", "4", "--checkpoint", "ref.pth"],
      "interop/torch_import.py"),
-    (["train", "--steps", "1"], "data/deepstab.py"),
     (["train", "--synthetic", "--steps", "1", "--mesh-devices", "2"], "parallel/"),
-    (["make-data", "--out", "unused"], "data/deepstab.py"),
     (["bench"], "utils/timing.py"),
-], ids=["data-parallel", "pth-checkpoint", "deepstab", "mesh-devices", "make-data", "bench"])
+], ids=["data-parallel", "pth-checkpoint", "mesh-devices", "bench"])
 def test_unported_flags_name_their_roadmap_item(argv, module):
     if argv[0] in ("stabilize", "train"):
         argv = [*argv, *MODEL, *CPU]

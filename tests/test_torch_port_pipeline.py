@@ -113,6 +113,71 @@ def test_stabilize_float_clip_and_fp16_fields():
                   ref_flows.astype(np.float32))
 
 
+def test_stabilize_bf16_fields_match_reference():
+    """bfloat16 warp fields come back as ``ml_dtypes.bfloat16``, as the
+    reference's do: the port's float32 fields rounded to bfloat16, and
+    the reference's values within its float32 tolerance plus one
+    bfloat16 rounding step (2^-8 relative)."""
+    import ml_dtypes
+
+    ref, port = _pair(warp_field_dtype="bfloat16")
+    clip = _clip(frames=6)
+    ref_out, ref_flows = ref.stabilize_frames(clip)
+    out, flows = port.stabilize_frames(clip)
+    assert flows.dtype == ref_flows.dtype == np.dtype(ml_dtypes.bfloat16)
+    assert flows.shape == ref_flows.shape == (6, 32, 32, 2)
+    np.testing.assert_array_equal(out, port.stabilize_frames(clip)[0])
+    assert np.abs(out.astype(np.int32) - ref_out.astype(np.int32)).max() <= 1
+    f32 = pipeline.Stabilizer(ModelConfig(**SMALL), PipelineConfig(batch_windows=4),
+                              state_dict=port.model.state_dict(), device="cpu")
+    _, flows32 = f32.stabilize_frames(clip)
+    np.testing.assert_array_equal(flows.view(np.int16),
+                                  flows32.astype(ml_dtypes.bfloat16).view(np.int16))
+    np.testing.assert_allclose(flows.astype(np.float32), ref_flows.astype(np.float32),
+                               atol=5e-4, rtol=2.0**-8)
+
+
+def test_bf16_archive_round_trip_and_apply(tmp_path):
+    """A bfloat16 archive written by ``WarpFieldWriter`` loads back as the
+    same bfloat16 values (the reference's loader reads the same bytes as
+    2-byte voids), and ``apply_warp_fields`` takes it and the array
+    alike, as the reference takes the array."""
+    import ml_dtypes
+
+    from pwstablenet_tpu.data import warp_fields as jax_warp_fields
+    from pwstablenet_tpu_torch.data import warp_fields
+
+    _, port = _pair(warp_field_dtype="bfloat16")
+    clip = _clip(frames=7)
+    out, flows = port.stabilize_frames(clip)
+    path = str(tmp_path / "wf.npz")
+    with warp_fields.WarpFieldWriter(path) as w:
+        w.write(flows[:4])
+        w.write(flows[4:])
+    loaded = warp_fields.load_warp_fields(path)
+    assert loaded.dtype == np.dtype(ml_dtypes.bfloat16)
+    np.testing.assert_array_equal(loaded.view(np.int16), flows.view(np.int16))
+    np.testing.assert_array_equal(jax_warp_fields.load_warp_fields(path).view(np.int16),
+                                  flows.view(np.int16))
+    cfg = ModelConfig(**SMALL)
+    redo = pipeline.apply_warp_fields(clip, loaded, cfg, batch_frames=3, device="cpu")
+    # the stream warped with the flows before their bfloat16 rounding
+    assert np.abs(redo.astype(np.int32) - out.astype(np.int32)).max() <= 1
+    np.testing.assert_array_equal(
+        redo, pipeline.apply_warp_fields(clip, flows.astype(np.float32), cfg, device="cpu"))
+    ref = jax_pipeline.apply_warp_fields(clip, flows, JaxModelConfig(**SMALL), batch_frames=3)
+    assert np.abs(redo.astype(np.int32) - ref.astype(np.int32)).max() <= 1
+
+
+def test_bf16_fields_without_ml_dtypes_refused_at_construction(monkeypatch):
+    monkeypatch.setitem(sys.modules, "ml_dtypes", None)  # import raises
+    with pytest.raises(RuntimeError, match="ml_dtypes"):
+        pipeline.Stabilizer(ModelConfig(**SMALL),
+                            PipelineConfig(warp_field_dtype="bfloat16"), device="cpu")
+    pipeline.Stabilizer(ModelConfig(**SMALL), PipelineConfig(warp_field_dtype="float16"),
+                        device="cpu")
+
+
 def test_stream_chunks_equal_one_shot():
     """Decoded chunks of any size give the same frames as one array."""
     _, port = _pair()
