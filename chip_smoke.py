@@ -95,8 +95,28 @@ Phases, each printing one JSON line:
              never calls them), its time on a (1,8,8,3) frame
              (``floor_ms``: launch, ramp and tail) and on its random
              check grid (``random_grid_ms``).
+8. parallel - ``parallel/`` (``parallel_nccl_world1``,
+             ``parallel_gloo_world2``, then ``parallel`` with the phase's
+             seconds): at world size 1 under NCCL in this process, the
+             data-parallel train step (bf16, the full model, batch 8, 2
+             steps) against ``make_train_step`` from the same state and
+             batches (metrics rtol 1e-4, parameters within 1e-6 on 99.9 %),
+             ms a step of each in turns and of the gradient sync alone;
+             the clip-sharded ``Stabilizer`` at 720p against the main
+             path's output (+-1 code, flows 1e-3); ``spatial_sharded_warp``
+             of a 2160x3840 uint8 frame, halo 120, against the unsharded
+             packed kernel (+-1 code).  Then world size 2 on the one card
+             under gloo (NCCL takes one rank per device), two spawned
+             processes: an f32 step (TF32 off, 4 windows a rank) against
+             the plain step on the whole batch, the f32 clip-sharded
+             ``Stabilizer`` against the plain one, and the 4K row-sharded
+             warp, uint8 and f32 (atol 5e-5), border and reflection,
+             against the unsharded kernels.  Gloo times on one card are
+             not speed figures (``gloo_on_one_card``).
 
-Then the ``kernels`` line, the card's name and power limit from
+Then the ``kernels`` line (with the launches of each parallel path at
+world size 1: ``launches_dp_train``, ``launches_clip_sharded``,
+``launches_spatial``), the card's name and power limit from
 ``nvidia-smi``, and ``{"ok": true, "device": {...}}`` as the last line.
 Any failed check raises and exits non-zero.
 """
@@ -534,6 +554,365 @@ def train_deepstab(torch, np, cfg, tcfg, before, steps, synthetic) -> None:
          pinned_h2d_ms=statistics.median(h2d_ms), pinned_h2d_ms_each=h2d_ms,
          resize_scale_range=list(data_cfg.resize_scale_range),
          decode_threads=data_cfg.num_decode_threads, first=logged[0], last=logged[-1])
+
+
+def adam_step_bound(t, b1=0.5, b2=0.999):
+    """The most that Adam's update ``t`` can move one element, in units
+    of the learning rate (``tests/test_torch_port_train.py``)."""
+    w1 = [b1 ** (t - 1 - k) * (1 - b1) / (1 - b1**t) for k in range(t)]
+    w2 = [b2 ** (t - 1 - k) * (1 - b2) / (1 - b2**t) for k in range(t)]
+    return math.sqrt(sum(a * a / b for a, b in zip(w1, w2)))
+
+
+def compare_states(torch, a, b, lr, steps):
+    """|a - b| over G's and D's parameters: the max, and the share of
+    elements within 1e-6 among those not fed into a norm (whose
+    gradients are rounding noise); checked against the train
+    tolerances of the card-vs-CPU phase."""
+    from pwstablenet_tpu_torch.train.state import feeds_a_norm
+
+    diffs, free = [], []
+    for m in ("g", "d"):
+        ref = dict(getattr(b, m).named_parameters())
+        for n, p in getattr(a, m).named_parameters():
+            d = (p.detach() - ref[n].detach()).abs().flatten().cpu()
+            diffs.append(d)
+            if not feeds_a_norm(n, ref):
+                free.append(d)
+    diff = float(torch.cat(diffs).max())
+    share = float((torch.cat(free) <= 1e-6).double().mean())
+    bound = 2 * lr * sum(adam_step_bound(t) for t in range(1, steps + 1)) * (1 + 1e-3)
+    check(diff <= bound and share >= 0.999,
+          f"data-parallel vs plain params: max {diff} (bound {bound}), share {share}")
+    return {"param_max_abs_diff": diff, "param_share_within_1em6": share}
+
+
+def metrics_rel(ma, mb):
+    return {k: abs(float(ma[k]) - float(v)) / max(abs(float(v)), 1e-12) for k, v in mb.items()}
+
+
+def compare_metrics(ma, mb):
+    """Each metric's relative difference (rtol 1e-4)."""
+    rel = metrics_rel(ma, mb)
+    check(set(ma) == set(mb) and max(rel.values()) <= 1e-4,
+          f"data-parallel vs plain metrics: {rel}")
+    return rel
+
+
+def compare_grads(torch, a, b):
+    """|grad_a - grad_b| / |grad_b| over each of G's and D's gradients,
+    as one vector each (rtol 1e-4)."""
+    rel = {}
+    for m in ("g", "d"):
+        ga = torch.cat([p.grad.flatten() for p in getattr(a, m).parameters()])
+        gb = torch.cat([p.grad.flatten() for p in getattr(b, m).parameters()])
+        rel[m] = float((ga - gb).norm() / gb.norm())
+    check(max(rel.values()) <= 1e-4, f"data-parallel vs plain gradients: {rel}")
+    return rel
+
+
+def spatial_inputs(torch, h=2160, w=3840):
+    """One 4K uint8 frame and a smooth flow within the 120-row halo, made
+    on the host from the seed (so every process makes the same)."""
+    import torch.nn.functional as F
+
+    from pwstablenet_tpu_torch.ops.warp import resize_flow
+
+    gen = torch.Generator().manual_seed(SEED + 30)
+    coarse = torch.rand(1, 3, 24, 40, generator=gen) * 255
+    img = F.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)
+    img = img.round().to(torch.uint8).permute(0, 2, 3, 1).contiguous()
+    # +-0.1 normalized = +-108 rows
+    lf = (torch.rand(1, 6, 10, 2, generator=gen) - 0.5) * 0.2
+    return img.cuda(), resize_flow(lf.cuda(), h, w).contiguous()
+
+
+def spatial_case(torch, K, img, flow, mesh, mode):
+    """This rank's band of ``spatial_sharded_warp`` against the same rows
+    of the unsharded kernel: (max abs diff, launches of the sharded
+    call)."""
+    from pwstablenet_tpu_torch.ops.warp import flow_to_grid
+    from pwstablenet_tpu_torch.parallel import spatial_sharded_warp
+
+    ref = (K.grid_sample_packed_u8 if img.dtype == torch.uint8 else K.grid_sample_f32)(
+        img, flow_to_grid(flow).contiguous(), mode)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    band = spatial_sharded_warp(img, flow, mesh, halo=120, padding_mode=mode)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    hs = img.shape[1] // mesh.size
+    rows = ref[:, mesh.rank * hs : (mesh.rank + 1) * hs]
+    check(band.shape == rows.shape and band.dtype == rows.dtype, f"band {band.shape}")
+    return (band.float() - rows.float()).abs().max().item(), launches
+
+
+def parallel_rank(rank: int, world: int, work: str) -> None:
+    """One of the two gloo ranks on the one card (a spawned process):
+    an f32 data-parallel step (rank 0 also holds it against the plain
+    step on the whole batch), the clip-sharded Stabilizer at 720p (each
+    rank against the plain one) and the row-sharded warp of a 4K frame
+    (each rank's band against the unsharded kernel), uint8 and f32,
+    border and reflection.  Writes ``rank<R>.json`` in ``work``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from pwstablenet_tpu_torch.config import ModelConfig, PipelineConfig, TrainConfig
+    from pwstablenet_tpu_torch.data.synthetic import make_train_batch
+    from pwstablenet_tpu_torch.kernels import grid_sample as K
+    from pwstablenet_tpu_torch.parallel import (
+        data_parallel_step, make_mesh, maybe_initialize_distributed, replicate_tree,
+        shard_batch,
+    )
+    from pwstablenet_tpu_torch.pipeline import Stabilizer
+    from pwstablenet_tpu_torch.train.loop import batch_to_device
+    from pwstablenet_tpu_torch.train.state import create_train_state
+    from pwstablenet_tpu_torch.train.step import make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    maybe_initialize_distributed(f"file://{os.path.join(work, 'rendezvous')}",
+                                 world_size=world, rank=rank, backend="gloo", timeout=600)
+    mesh = make_mesh()
+    cuda = torch.device("cuda")
+    res = {"rank": rank, "mesh_size": mesh.size, "backend": "gloo",
+           "gloo_on_one_card": True}
+
+    # ---- the data-parallel train step, f32, batch 8 (4 a rank), from
+    # the initial state (zero warp heads: G's gradient reaches the heads
+    # alone).  D's learning rate is 0: Adam's first update moves each
+    # parameter by +-lr in the sign of its gradient, so D's elements
+    # whose gradient is within rounding of 0 land 2 lr apart between two
+    # orders of the same sums, and G's loss and gradient against the
+    # updated D move with them (grad_norm_g read up to 8.8e-5 apart on
+    # the card with D's update on; with heads redrawn at 1e-3, 1.1e-4 to
+    # 4.3e-4, and with D's update off 1.3 % of G's elements 2 lr apart).
+    # D's gradient, its sync and its norm are still held.
+    cfg = ModelConfig(compute_dtype="float32")
+    tcfg = TrainConfig(batch_size=8, seed=SEED, lr_d=0.0)
+    state = replicate_tree(create_train_state(cfg, tcfg, cuda), mesh)
+    step = data_parallel_step(make_train_step(cfg, tcfg), mesh)
+    batches = [make_train_batch(8, 256, 256, cfg.temporal_window, seed=SEED + 20 + i)
+               for i in range(2)]
+    step_ms, launches = [], None
+    for i, batch in enumerate(batches):
+        local = batch_to_device(shard_batch(batch, mesh), cuda)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = step(state, local)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            launches = dict(K.LAUNCHES)
+            if rank == 0:  # against the plain step on the whole batch
+                ref = create_train_state(cfg, tcfg, cuda)
+                m_ref = make_train_step(cfg, tcfg)(ref, batch_to_device(batch, cuda))
+                rel = compare_metrics(m, m_ref)
+                grads = compare_grads(torch, state, ref)
+                # the card's own spread: the plain step once more
+                again = create_train_state(cfg, tcfg, cuda)
+                m_again = make_train_step(cfg, tcfg)(again, batch_to_device(batch, cuda))
+                res["train_vs_plain"] = {"metrics_max_rel_diff": max(rel.values()),
+                                         "metrics_rel": rel,
+                                         "plain_vs_plain_metrics_rel": metrics_rel(m_again, m_ref),
+                                         "grad_rel_diff": grads,
+                                         **compare_states(torch, state, ref, tcfg.lr_g, 1)}
+                del ref, m_ref, again, m_again
+    check(launches["grid_sample_grad_f32"] == 3 and launches["grid_sample_f32"] > 0,
+          f"rank {rank} data-parallel step launches {launches}")
+    res["train"] = {"launches": launches, "step_ms_gloo": step_ms,
+                    "loss_g": float(m["loss_g"])}
+    del state, step
+
+    # ---- clip-sharded Stabilizer, f32, 24 720p frames
+    gen = torch.Generator().manual_seed(SEED + 5)
+    coarse = torch.rand(24, 3, 12, 20, generator=gen) * 255
+    clip = F.interpolate(coarse, size=(720, 1280), mode="bilinear", align_corners=False)
+    clip = clip.round().to(torch.uint8).permute(0, 2, 3, 1).contiguous().numpy()
+    plain = Stabilizer(cfg, PipelineConfig(batch_windows=8), seed=SEED)
+    hgen = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():
+        for s in range(cfg.num_stages):
+            head = getattr(plain.model, f"stage{s}").head
+            head.weight.copy_(torch.randn(head.weight.shape, generator=hgen) * 1e-3)
+    sharded = Stabilizer(cfg, PipelineConfig(batch_windows=8),
+                         state_dict=plain.model.state_dict(), mesh=mesh)
+    ref_out, ref_flows = plain.stabilize_frames(clip)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, flows = sharded.stabilize_frames(clip)
+    secs = time.perf_counter() - t0
+    stab_launches = dict(K.LAUNCHES)
+    code = int(np.abs(out.astype(np.int32) - ref_out.astype(np.int32)).max())
+    fdiff = float(np.abs(flows - ref_flows).max())
+    check(out.shape == clip.shape and code <= 1 and fdiff <= 1e-3,
+          f"rank {rank} clip-sharded vs plain: {code} codes, flows {fdiff}")
+    check(stab_launches["grid_sample_f32"] > 0 and stab_launches["grid_sample_packed_u8"] > 0,
+          f"rank {rank} clip-sharded launches {stab_launches}")
+    res["stabilizer"] = {"frame_max_code_diff": code, "flow_max_abs_diff": fdiff,
+                         "flow_abs_max": float(np.abs(ref_flows).max()),
+                         "launches": stab_launches, "seconds_gloo": secs}
+    del plain, sharded
+
+    # ---- row-sharded warp of a 4K frame
+    img, flow = spatial_inputs(torch)
+    res["spatial"] = {}
+    for dtype in ("uint8", "float32"):
+        im = img if dtype == "uint8" else img.float() / 255.0
+        for mode in ("border", "reflection"):
+            err, sp_launches = spatial_case(torch, K, im, flow, mesh, mode)
+            check(err <= (1 if dtype == "uint8" else 5e-5),
+                  f"rank {rank} spatial {dtype}/{mode}: {err}")
+            res["spatial"][f"{dtype}/{mode}"] = {"max_abs_err": err, "launches": sp_launches}
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def parallel(torch, np, cfg, sd, clip, out, flows) -> dict:
+    """``parallel/`` on the card.  (a) World size 1 under NCCL, in this
+    process: the data-parallel train step against ``make_train_step``
+    (bf16, the full model, batch 8, 2 steps) and its ms against the plain
+    step's in turns, the gradient sync alone, the clip-sharded
+    ``Stabilizer`` at 720p against the main path's output, and the
+    row-sharded warp of a 4K uint8 frame (halo 120) against the unsharded
+    packed kernel.  (b) World size 2 on the one card under gloo (NCCL
+    takes one rank per device), two spawned processes
+    (``parallel_rank``).  Returns the launches of (a)'s three paths."""
+    import multiprocessing
+    import socket
+
+    import torch.distributed as dist
+
+    from pwstablenet_tpu_torch.config import PipelineConfig, TrainConfig
+    from pwstablenet_tpu_torch.data.synthetic import make_train_batch
+    from pwstablenet_tpu_torch.kernels import grid_sample as K
+    from pwstablenet_tpu_torch.parallel import (
+        GradSync, data_parallel_step, make_mesh, maybe_initialize_distributed,
+        process_info, replicate_tree, shard_batch,
+    )
+    from pwstablenet_tpu_torch.pipeline import Stabilizer
+    from pwstablenet_tpu_torch.train.loop import batch_to_device
+    from pwstablenet_tpu_torch.train.state import create_train_state
+    from pwstablenet_tpu_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    check(maybe_initialize_distributed(f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+                                       backend="nccl", timeout=300), "NCCL init")
+    mesh = make_mesh()
+    cuda = torch.device("cuda")
+    tcfg = TrainConfig(batch_size=8, seed=SEED)
+    plain_state = create_train_state(cfg, tcfg, cuda)
+    dp_state = replicate_tree(create_train_state(cfg, tcfg, cuda), mesh)
+    plain_step = make_train_step(cfg, tcfg)
+    dp_step = data_parallel_step(plain_step, mesh)
+    batches = [batch_to_device(shard_batch(make_train_batch(
+        8, 256, 256, cfg.temporal_window, seed=SEED + 10 + i), mesh), cuda) for i in range(2)]
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    dp_metrics = [dp_step(dp_state, b) for b in batches]
+    torch.cuda.synchronize()
+    dp_launches = dict(K.LAUNCHES)
+    plain_metrics = [plain_step(plain_state, b) for b in batches]
+    check(dp_launches["grid_sample_grad_f32"] == 3 * len(batches)
+          and dp_launches["grid_sample_f32"] > 0, f"data-parallel step launches {dp_launches}")
+    rel = max(max(compare_metrics(a, b).values()) for a, b in zip(dp_metrics, plain_metrics))
+    params = compare_states(torch, dp_state, plain_state, tcfg.lr_g, len(batches))
+    # ms a step in turns, plain and data-parallel, and the sync alone
+    ms = {"plain": [], "dp": []}
+    for r in range(6):
+        order = (("plain", plain_step, plain_state), ("dp", dp_step, dp_state))
+        for name, fn, st_ in (order if r % 2 == 0 else order[::-1]):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn(st_, batches[0])
+            b.record()
+            b.synchronize()
+            ms[name].append(a.elapsed_time(b))
+    sync = GradSync(mesh)
+    sync_ms = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        sync(dp_state.g)
+        sync(dp_state.d)
+        b.record()
+        b.synchronize()
+        sync_ms.append(a.elapsed_time(b))
+    grad_bytes = {m: sum(p.numel() * p.element_size() for p in getattr(dp_state, m).parameters())
+                  for m in ("g", "d")}
+    del plain_state, dp_state, batches, dp_metrics, plain_metrics
+
+    # the clip-sharded Stabilizer at 720p against the main path's output
+    st = Stabilizer(cfg, PipelineConfig(batch_windows=8), state_dict=sd, mesh=mesh)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    s_out, s_flows = st.stabilize_frames(clip)
+    stab_s = time.perf_counter() - t0
+    stab_launches = dict(K.LAUNCHES)
+    code = int(np.abs(s_out.astype(np.int32) - out.astype(np.int32)).max())
+    fdiff = float(np.abs(s_flows - flows).max())
+    check(code <= 1 and fdiff <= 1e-3, f"clip-sharded vs plain: {code} codes, flows {fdiff}")
+    check(stab_launches["grid_sample_f32"] > 0 and stab_launches["grid_sample_packed_u8"] > 0,
+          f"clip-sharded launches {stab_launches}")
+    del st
+
+    # the row-sharded warp of one 4K uint8 frame
+    img, flow = spatial_inputs(torch)
+    sp_err, sp_launches = spatial_case(torch, K, img, flow, mesh, "border")
+    check(sp_err <= 1, f"row-sharded warp vs unsharded kernel: {sp_err} codes")
+    check(sp_launches["grid_sample_packed_u8"] == 1, f"row-sharded launches {sp_launches}")
+    emit("parallel_nccl_world1", process_info=process_info(), backend=dist.get_backend(),
+         train={"launches": dp_launches, "metrics_max_rel_diff": rel, **params,
+                "dp_step_ms": statistics.median(ms["dp"]),
+                "plain_step_ms": statistics.median(ms["plain"]), "step_ms_each": ms,
+                "grad_sync_ms": statistics.median(sync_ms), "grad_sync_ms_each": sync_ms,
+                "grad_bytes": grad_bytes, "compute_dtype": cfg.compute_dtype,
+                "batch_size": tcfg.batch_size},
+         stabilizer={"launches": stab_launches, "seconds": stab_s,
+                     "frame_max_code_diff": code, "flow_max_abs_diff": fdiff,
+                     "frames": list(s_out.shape)},
+         spatial={"launches": sp_launches, "max_code_diff": sp_err, "frame": list(img.shape),
+                  "halo": 120})
+    dist.destroy_process_group()
+    del img, flow
+
+    # (b) two gloo ranks on the one card; the kernels are built already
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        procs = [ctx.Process(target=parallel_rank, args=(r, 2, work)) for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + 420
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 1))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        check(codes == [0, 0], f"gloo ranks exited {codes}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    check("train_vs_plain" in ranks[0], "rank 0 compared the data-parallel step")
+    emit("parallel_gloo_world2", seconds=time.perf_counter() - t0, ranks=ranks)
+    emit("parallel", seconds=time.perf_counter() - t_phase)
+    return {"dp_train": dp_launches, "clip_sharded": stab_launches, "spatial": sp_launches}
 
 
 def main() -> int:
@@ -995,12 +1374,17 @@ def main() -> int:
     # per pixel: read grid (8 B), 4 taps and the cotangent of C f32,
     # write 2 f32; ~25 flops of coordinates and scales plus 14 per channel
     b3, by3 = bound(px3 * (8 + 3 * 4 + 3 * 4 + 8), px3 * (25 + 14 * 3))
+    # ---- 8. parallel/ ------------------------------------------------
+    par = parallel(torch, np, cfg, sd, clip, out, flows)
+
     kernels = [
         {"name": "grid_sample_f32", "route": "cuda",
          "source": "pwstablenet_tpu_torch/csrc/grid_sample.cu",
          "replaces": "pwstablenet_tpu/kernels/grid_sample_pallas.py:614 (grid_sample_pallas)",
          "launches": launches["grid_sample_f32"],
-         "launches_train": train_launches["grid_sample_f32"], "max_abs_err": f32_err,
+         "launches_train": train_launches["grid_sample_f32"],
+         **{f"launches_{path}": n["grid_sample_f32"] for path, n in par.items()},
+         "max_abs_err": f32_err,
          "ms": k1["ms"], "kernel_ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": b1, "bound_by": by1, "library_ms": k1["library_ms"],
          "floor_ms": k1["floor_ms"], "random_grid_ms": k1["random_grid_ms"],
@@ -1011,7 +1395,9 @@ def main() -> int:
         {"name": "grid_sample_packed_u8", "route": "cuda",
          "source": "pwstablenet_tpu_torch/csrc/grid_sample.cu",
          "replaces": "pwstablenet_tpu/kernels/grid_sample_pallas.py:714 (grid_sample_pallas_packed)",
-         "launches": launches["grid_sample_packed_u8"], "max_abs_err": u8_err,
+         "launches": launches["grid_sample_packed_u8"],
+         **{f"launches_{path}": n["grid_sample_packed_u8"] for path, n in par.items()},
+         "max_abs_err": u8_err,
          "ms": k2["ms"], "kernel_ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": b2, "bound_by": by2, "library_ms": k2["library_ms"],
          "floor_ms": k2["floor_ms"], "random_grid_ms": k2["random_grid_ms"],
@@ -1021,6 +1407,7 @@ def main() -> int:
          "replaces": "pwstablenet_tpu/kernels/grid_sample_pallas.py:805 (grid_sample_grad_pallas)",
          "launches": train_launches["grid_sample_grad_f32"],
          "launches_per_train_step": train_launches["grid_sample_grad_f32"] / train_steps,
+         **{f"launches_{path}": n["grid_sample_grad_f32"] for path, n in par.items()},
          "max_abs_err": grad_err,
          "ms": k3["ms"], "kernel_ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": b3, "bound_by": by3, "library_ms": k3["library_ms"],

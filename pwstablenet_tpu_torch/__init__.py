@@ -17,4 +17,7 @@ Layout
 - ``data``      synthetic training batches, host-side prefetch
 - ``train``     losses, state, the adversarial train step, checkpoints,
                 the training loop
+- ``parallel``  one process per GPU on ``torch.distributed``: the mesh,
+                data-parallel training, clip-sharded inference, the
+                row-sharded warp
 """

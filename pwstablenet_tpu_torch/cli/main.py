@@ -6,9 +6,13 @@ subcommands with the same flags, each printing one JSON line on stdout.
     python -m pwstablenet_tpu_torch.cli train --data-root DeepStab --steps 1000
     python -m pwstablenet_tpu_torch.cli train --synthetic --steps 1000
     python -m pwstablenet_tpu_torch.cli stabilize --synthetic --frames 24 --device cpu
+    torchrun --standalone --nproc_per_node N -m pwstablenet_tpu_torch.cli train --synthetic
 
 Every command that runs a model runs on the card unless ``--device``
-names another device (``--device cpu``: the plain CPU path).  Flags and
+names another device (``--device cpu``: the plain CPU path).  Under a
+launcher that starts one process per GPU (``torchrun``), ``train`` is
+data-parallel over the processes and ``stabilize --data-parallel``
+clip-sharded; only rank 0 prints and writes files.  Flags and
 subcommands whose modules are not ported yet raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
@@ -110,10 +114,9 @@ def cmd_stabilize(args) -> int:
     import numpy as np
 
     from pwstablenet_tpu_torch.config import PipelineConfig
+    from pwstablenet_tpu_torch.parallel import make_mesh, maybe_initialize_distributed
     from pwstablenet_tpu_torch.pipeline import Stabilizer
 
-    if args.data_parallel:
-        raise _unported("--data-parallel (clip-sharded inference)", "parallel/", 11)
     model_cfg = _model_cfg(args)
     pipe_cfg = PipelineConfig(
         batch_windows=args.batch_windows,
@@ -121,16 +124,28 @@ def cmd_stabilize(args) -> int:
         emit_warp_fields=args.warp_fields is not None,
         warp_field_dtype=args.warp_dtype,
     )
+    mesh = None
+    if args.data_parallel:
+        # clip-sharded inference: temporal windows split over the
+        # processes of the launcher's group (batch_windows must divide)
+        maybe_initialize_distributed()
+        mesh = make_mesh()
+        if mesh.size == 1:
+            mesh = None
+    primary = mesh is None or mesh.rank == 0
     state_dict = None
     if args.checkpoint:
         state_dict = _generator_weights(args.checkpoint, args.checkpoint_step)
-    stab = Stabilizer(model_cfg, pipe_cfg, state_dict=state_dict, device=args.device)
+    stab = Stabilizer(model_cfg, pipe_cfg, state_dict=state_dict, device=args.device,
+                      mesh=mesh)
 
     if args.synthetic:
         from pwstablenet_tpu_torch.data.synthetic import synthetic_pair_clip
 
         _, unstable = synthetic_pair_clip(args.frames, args.height, args.width, seed=0)
         out, flows = stab.stabilize_frames(unstable)
+        if not primary:
+            return 0
         if args.output:
             from pwstablenet_tpu_torch.data import video_io
 
@@ -152,17 +167,18 @@ def cmd_stabilize(args) -> int:
         warp_field_path=args.warp_fields,
         max_frames=args.frames if args.frames > 0 else -1,
     )
-    print(json.dumps(result))
+    if primary:
+        print(json.dumps(result))
     return 0
 
 
 def cmd_train(args) -> int:
     from pwstablenet_tpu_torch.config import DataConfig, MeshConfig, TrainConfig
+    from pwstablenet_tpu_torch.parallel import maybe_initialize_distributed, process_info
     from pwstablenet_tpu_torch.train.loop import synthetic_batch_iterator, train
 
-    if args.mesh_devices > 1:
-        raise _unported(f"--mesh-devices {args.mesh_devices} (data-parallel training)",
-                        "parallel/", 11)
+    # data-parallel over the launcher's processes, if there are any
+    maybe_initialize_distributed()
     model_cfg = _model_cfg(args)
     train_cfg = TrainConfig(
         batch_size=args.batch_size,
@@ -234,7 +250,7 @@ def cmd_train(args) -> int:
         )
     finally:
         batches.close()
-    if args.export_params:
+    if args.export_params and process_info()["process_index"] == 0:
         from pwstablenet_tpu_torch.train import checkpoint as ckpt
 
         # inference weights (the EMA copy when tracked), which
@@ -365,8 +381,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "auto-tracked best-eval export")
     s.add_argument("--warp-fields", help="save warp fields to .npz")
     s.add_argument("--data-parallel", action="store_true",
-                   help="clip-sharded inference over all local devices "
-                        "(not ported yet)")
+                   help="clip-sharded inference over the processes of a "
+                        "launcher such as torchrun (one per GPU)")
     s.add_argument("--warp-dtype", choices=["float32", "float16"],
                    default="float32",
                    help="dtype warp fields cross device->host in "
@@ -433,8 +449,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="random scale-jitter range before the crop")
     t.add_argument("--decode-threads", type=int, default=2)
     t.add_argument("--mesh-devices", type=int, default=-1,
-                   help="cap the data-parallel mesh size (-1: no mesh; "
-                        "more than 1 is not ported yet)")
+                   help="cap the data-parallel mesh size (-1 = all "
+                        "processes whose count divides the batch)")
     t.add_argument("--checkpoint-every", type=int, default=500)
     t.add_argument("--debug-nans", action="store_true")
     t.add_argument("--fault-inject-step", type=int, default=-1)

@@ -195,11 +195,12 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device mesh for data-parallel training (one device until
-    ``parallel/`` is ported)."""
+    """Data-parallel mesh for training and clip-sharded inference: the
+    first ``num_devices`` ranks of the process group, one GPU each
+    (``parallel.mesh``)."""
 
     data_axis: str = "data"
-    num_devices: int = -1             # -1 = all local devices
+    num_devices: int = -1             # -1 = every rank of the process group
 
 
 @dataclasses.dataclass(frozen=True)

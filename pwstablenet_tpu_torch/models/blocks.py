@@ -13,6 +13,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -81,17 +82,49 @@ class InstanceNorm(_Norm):
         return self._affine((xf - mu) * torch.rsqrt(var + self.eps))
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over a process group, forward and backward: the backward sums
+    the incoming gradients, which is the gradient of statistics taken
+    over the global batch (what the reference's SPMD partitioner derives
+    for a mean over a sharded axis)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
 class BatchNorm(_Norm):
     """Stats-free batch normalization: batch statistics at train and
-    test time (pix2pix), two-pass, in float32."""
+    test time (pix2pix), two-pass, in float32.
+
+    With a process group in ``group`` (``parallel.mesh.sync_batch_norm``)
+    the statistics are the global batch's: each pass all-reduces its
+    per-channel sum and element count over the group."""
 
     def __init__(self, channels: int, dtype: torch.dtype, eps: float = 1e-5):
         super().__init__(channels, dtype, eps)
+        self.group = None
+
+    def _mean(self, t: torch.Tensor) -> torch.Tensor:
+        if self.group is None:
+            return t.mean(dim=(0, 2, 3), keepdim=True)
+        local = torch.cat([t.sum(dim=(0, 2, 3)), t.new_full((1,), t.numel() / t.shape[1])])
+        total = _AllReduceSum.apply(local, self.group)
+        return (total[:-1] / total[-1])[None, :, None, None]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.float32)
-        mu = xf.mean(dim=(0, 2, 3), keepdim=True)
-        var = (xf - mu).square().mean(dim=(0, 2, 3), keepdim=True)
+        mu = self._mean(xf)
+        var = self._mean((xf - mu).square())
         return self._affine((xf - mu) * torch.rsqrt(var + self.eps))
 
 

@@ -11,6 +11,10 @@ fields out.
   while chunk i's results copy back into pinned host memory.
 - ``stabilize_video`` is the file layer around that stream: native or
   OpenCV decode, incremental encode, warp fields streamed to an archive.
+- Clip-sharded (``Stabilizer(mesh=...)``, ``parallel.mesh``): every rank
+  streams the same clip; each chunk's temporal windows are split over
+  the mesh's ranks and the results all-gathered, so every rank gets the
+  whole chunk (and only rank 0 writes files).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without ``device="cpu"`` they raise.
@@ -30,6 +34,7 @@ from pwstablenet_tpu_torch.data.warp_fields import bfloat16
 from pwstablenet_tpu_torch.models.generator import CascadedGenerator
 from pwstablenet_tpu_torch.ops.pixels import from_unit, to_unit
 from pwstablenet_tpu_torch.ops.warp import warp_image
+from pwstablenet_tpu_torch.parallel.mesh import Mesh, all_gather_rows, sync_batch_norm
 
 
 def resolve_device(device=None) -> torch.device:
@@ -94,7 +99,12 @@ class Stabilizer:
     ``state_dict`` may come from ``interop.from_jax`` (weights of the
     JAX package) or from another ``Stabilizer``; without one the
     generator is initialised from ``torch.Generator().manual_seed(seed)``
-    with an identity-warp head."""
+    with an identity-warp head.
+
+    ``mesh`` (``parallel.mesh.Mesh``): clip-sharded inference, each
+    chunk's windows split over the mesh's ranks (batch norm over all of
+    them); ``batch_windows`` must be divisible by the mesh size.  Every
+    rank of the mesh runs the same calls on the same clip."""
 
     def __init__(
         self,
@@ -103,10 +113,17 @@ class Stabilizer:
         state_dict: Optional[Dict[str, torch.Tensor]] = None,
         seed: int = 0,
         device=None,
+        mesh: Optional[Mesh] = None,
     ):
         self.device = resolve_device(device)
         self.model_cfg = model_cfg or ModelConfig()
         self.pipeline_cfg = pipeline_cfg or PipelineConfig()
+        self.mesh = mesh
+        if mesh is not None and self.pipeline_cfg.batch_windows % mesh.size:
+            raise ValueError(
+                f"batch_windows ({self.pipeline_cfg.batch_windows}) must "
+                f"be divisible by the mesh size ({mesh.size})"
+            )
         if self.pipeline_cfg.warp_field_dtype == "bfloat16":
             bfloat16()  # without ml_dtypes, refuse here, not at the first chunk
         gen = torch.Generator().manual_seed(seed)
@@ -114,6 +131,8 @@ class Stabilizer:
         if state_dict is not None:
             model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
+        if mesh is not None:
+            sync_batch_norm(self.model, mesh)
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
@@ -128,12 +147,18 @@ class Stabilizer:
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The chunk step's body, with the generator's weights taken from
         ``state_dict`` when given (``export`` traces it so, keeping the
-        weights arguments of the exported program)."""
+        weights arguments of the exported program).  Under a mesh, rank
+        ``r`` of ``size`` takes windows ``[r*k, (r+1)*k)``, ``k = n /
+        size``, and so only frames ``[r*k, r*k + k + T - 1)``."""
         cfg = self.model_cfg
         mh, mw = cfg.model_resolution
         T = cfg.temporal_window
         is_int = not frames.dtype.is_floating_point
         n = frames.shape[0] - (T - 1)
+        mesh = self.mesh
+        if mesh is not None:
+            n //= mesh.size
+            frames = frames[mesh.rank * n : mesh.rank * n + n + T - 1]
         framesf = to_unit(frames)
         # antialiased bilinear downscale (jax.image.resize's default)
         small = F.interpolate(
@@ -155,6 +180,8 @@ class Stabilizer:
         if is_int and stabilized.dtype.is_floating_point:
             stabilized = from_unit(stabilized)
         flow = flow.to(getattr(torch, self.pipeline_cfg.warp_field_dtype))
+        if mesh is not None:
+            stabilized, flow = all_gather_rows(stabilized, mesh), all_gather_rows(flow, mesh)
         return stabilized, flow
 
     # ------------------------------------------------------------------
@@ -187,7 +214,9 @@ class Stabilizer:
         """Video in, video out: decode (a background thread) -> device
         chunks -> stabilized frames -> incremental encode, for videos of
         any length.  Warp fields stream to ``warp_field_path`` chunk by
-        chunk (``data.warp_fields``) when given.
+        chunk (``data.warp_fields``) when given.  Under a mesh every rank
+        decodes and runs the clip, and only rank 0 writes the video and
+        the warp fields.
 
         The native C++ decoder and encoder (``data.native_io``) come
         first, then the Python OpenCV path; a missing input raises
@@ -226,14 +255,18 @@ class Stabilizer:
         dy, dx = self._crop_margins(h, w)
         size = (h - 2 * dy, w - 2 * dx)
         prefetch = None
-        if decoder is not None:
+        primary = self.mesh is None or self.mesh.rank == 0
+        if not primary:
+            writer = _Discard()
+        elif decoder is not None:
             writer = native_io.NativeEncoder(output_path, fps, size, cfg.output_codec)
         else:
             writer = video_io.VideoWriterStream(output_path, fps, size, cfg.output_codec)
+        if decoder is None:
             # the native decoder has its own decode thread and queue
             frames_iter = prefetch = Prefetcher(frames_iter, cfg.prefetch_depth)
         flow_writer = None
-        if cfg.emit_warp_fields and warp_field_path:
+        if cfg.emit_warp_fields and warp_field_path and primary:
             flow_writer = WarpFieldWriter(warp_field_path)
         try:
             count = self._stream_to(frames_iter, writer, flow_writer)
@@ -342,6 +375,16 @@ class Stabilizer:
         if dy == 0 and dx == 0:
             return frames
         return frames[:, dy : h - dy, dx : w - dx]
+
+
+class _Discard:
+    """The writer of a rank that writes nothing."""
+
+    def write(self, frames) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def _limit_frames(chunks: Iterator[np.ndarray], limit: int) -> Iterator[np.ndarray]:

@@ -1,4 +1,5 @@
-"""Host training loop on one device.
+"""Host training loop, on one device or data-parallel over the ranks of
+a process group (one process per GPU).
 
 The device does the math (``train.step``); the host feeds batches, logs
 metrics and saves checkpoints.  Batches cross host->device as uint8
@@ -6,6 +7,7 @@ from pinned memory with ``non_blocking`` copies, and batch N+1 is
 prepared while the card runs step N: nothing in the loop waits on the
 card except the metrics fetch at ``log_every``.  Supports:
 
+- data-parallel execution over a mesh (``parallel.data_parallel_step``);
 - resume from the newest checkpoint (``resume=True``);
 - JSONL metrics to stdout, and to ``scalar_log_path`` when set;
 - TensorBoard event files in ``tb_log_dir`` when set
@@ -14,7 +16,11 @@ card except the metrics fetch at ``log_every``.  Supports:
 - fault injection for resume testing (``fault_inject_step``);
 - an optional eval hook with best-step tracking.
 
-Not ported yet (it raises): a mesh of more than one device.
+Under a process group the mesh is the largest one whose size divides
+the batch, capped by ``mesh_cfg.num_devices``: every rank restores,
+each mesh rank steps on its rows of every batch, and only rank 0 logs,
+evaluates and writes checkpoints.  Ranks the mesh leaves out take no
+step: they wait at a barrier for the others and return.
 """
 
 from __future__ import annotations
@@ -26,9 +32,17 @@ from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pwstablenet_tpu_torch.config import MeshConfig, ModelConfig, TrainConfig
 from pwstablenet_tpu_torch.data.prefetch import Prefetcher
+from pwstablenet_tpu_torch.parallel.mesh import (
+    data_parallel_step,
+    make_mesh_for_batch,
+    replicate_tree,
+    shard_batch,
+    sync_batch_norm,
+)
 from pwstablenet_tpu_torch.pipeline import resolve_device
 from pwstablenet_tpu_torch.train import checkpoint as ckpt
 from pwstablenet_tpu_torch.train.state import TrainState, create_train_state
@@ -38,18 +52,6 @@ from pwstablenet_tpu_torch.utils.tb_writer import SummaryWriter
 
 class FaultInjected(RuntimeError):
     """Raised by the debug fault-injection flag to test resume."""
-
-
-def _check_unported(mesh_cfg: Optional[MeshConfig], device: torch.device) -> None:
-    if mesh_cfg is not None:
-        n = mesh_cfg.num_devices
-        if n == -1:
-            n = torch.cuda.device_count() if device.type == "cuda" else 1
-        if n > 1:
-            raise NotImplementedError(
-                f"a mesh of {n} devices: data-parallel training (parallel/) "
-                "is not ported yet; pass MeshConfig(num_devices=1)"
-            )
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -79,20 +81,30 @@ def train(
     """Run adversarial training on ``device`` (the card unless the caller
     asks for the CPU); returns the final ``TrainState``."""
     device = resolve_device(device)
-    _check_unported(mesh_cfg, device)
     state = create_train_state(model_cfg, train_cfg, device)
     if resume and ckpt.latest_step(train_cfg.checkpoint_dir) is not None:
         state = ckpt.restore_state(train_cfg.checkpoint_dir, state)
         print(json.dumps({"event": "resumed", "step": state.step}), file=sys.stderr)
-    step_fn = make_train_step(model_cfg, train_cfg)
+
+    mesh = make_mesh_for_batch(train_cfg.batch_size, mesh_cfg)
+    if not mesh.member:
+        dist.barrier()
+        return state
+    sync_batch_norm(state.g, mesh)
+    sync_batch_norm(state.d, mesh)
+    replicate_tree(state, mesh)
+    step_fn = data_parallel_step(make_train_step(model_cfg, train_cfg), mesh)
+    primary = mesh.rank == 0
 
     total = (
         max_steps if max_steps is not None
         else train_cfg.num_epochs * train_cfg.steps_per_epoch
     )
     log = log_fn or (lambda m: print(json.dumps(m), flush=True))
+    if not primary:
+        log, eval_fn = (lambda m: None), None
     closers = []
-    if train_cfg.scalar_log_path:
+    if train_cfg.scalar_log_path and primary:
         scalar_file = open(train_cfg.scalar_log_path, "a", buffering=1)
         closers.append(scalar_file.close)
         inner_log = log
@@ -101,7 +113,7 @@ def train(
             _f.write(json.dumps(m) + "\n")
             _inner(m)
 
-    if train_cfg.tb_log_dir:
+    if train_cfg.tb_log_dir and primary:
         tb = SummaryWriter(train_cfg.tb_log_dir)
         closers.append(tb.close)
         inner_log2 = log
@@ -112,15 +124,19 @@ def train(
             _inner(m)
 
     try:
-        return _run_loop(state, step_fn, batch_iterator, device, train_cfg,
-                         total, log, eval_fn)
+        state = _run_loop(state, step_fn, batch_iterator, device, mesh, train_cfg,
+                          total, log, eval_fn)
     finally:
         for close in closers:
             close()
+    if dist.is_initialized() and mesh.size < dist.get_world_size():
+        dist.barrier()  # the ranks the mesh left out wait here
+    return state
 
 
-def _run_loop(state, step_fn, batch_iterator, device, train_cfg, total, log,
+def _run_loop(state, step_fn, batch_iterator, device, mesh, train_cfg, total, log,
               eval_fn=None):
+    primary = mesh.rank == 0
     step = state.step
     t_last = time.perf_counter()
     last_logged = step
@@ -128,7 +144,7 @@ def _run_loop(state, step_fn, batch_iterator, device, train_cfg, total, log,
     # configuration matches
     eval_fp = getattr(eval_fn, "fingerprint", None)
     prev_best = ckpt.best_step(train_cfg.checkpoint_dir)
-    if prev_best is not None and prev_best.get("eval_fingerprint") != eval_fp:
+    if primary and prev_best is not None and prev_best.get("eval_fingerprint") != eval_fp:
         print(json.dumps({
             "event": "best_tracking_reset",
             "reason": "eval configuration changed since the recorded best "
@@ -139,13 +155,13 @@ def _run_loop(state, step_fn, batch_iterator, device, train_cfg, total, log,
     best_value = prev_best["value"] if prev_best else float("-inf")
     if step >= total:
         return state
-    next_batch = batch_to_device(next(batch_iterator), device)
+    next_batch = batch_to_device(shard_batch(next(batch_iterator), mesh), device)
     while step < total:
         batch = next_batch
         metrics = step_fn(state, batch)
         step += 1
         if step < total:
-            next_batch = batch_to_device(next(batch_iterator), device)
+            next_batch = batch_to_device(shard_batch(next(batch_iterator), mesh), device)
 
         if train_cfg.fault_inject_step == step:
             if device.type == "cuda":
@@ -182,7 +198,7 @@ def _run_loop(state, step_fn, batch_iterator, device, train_cfg, total, log,
                 print(json.dumps({"event": "new_best", "step": step,
                                   "eval_stability": best_value}), file=sys.stderr)
 
-        if step % train_cfg.checkpoint_every == 0 or step == total:
+        if primary and (step % train_cfg.checkpoint_every == 0 or step == total):
             ckpt.save_state(train_cfg.checkpoint_dir, state, train_cfg.keep_checkpoints)
     return state
 

@@ -1,5 +1,5 @@
 """The adversarial train step: the D update, then the G update, on one
-device.
+device, or on each rank of a data-parallel mesh.
 
 Batch format (``data.synthetic.make_train_batch``, on the device):
   stacks: (B, 2, H, W, T*C) temporal stacks for two consecutive time
@@ -18,6 +18,16 @@ sample kernel forward, the d/dgrid kernel backward.
 
 A step updates the state in place and returns its metrics as device
 tensors (no host sync).
+
+Data parallel (``parallel.mesh.data_parallel_step``): each rank runs
+the step on its shard of the global batch with a ``grad_sync``, called
+with D after D's backward and with G after G's (after each phase's
+micro-batches under gradient accumulation, which splits the rank's own
+shard), before the grad norm and the optimizer step; the metrics are
+averaged over the ranks before the step returns them.  G and D are not
+wrapped in ``DistributedDataParallel``: the step runs G forward once for
+two backward passes and freezes D during the G update, and DDP's reducer
+expects one forward per backward.
 """
 
 from __future__ import annotations
@@ -87,16 +97,23 @@ def _frozen(module: torch.nn.Module) -> Iterator[None]:
         module.requires_grad_(True)
 
 
-def _dropout_seed(state: TrainState) -> int:
+def _dropout_seed(state: TrainState, rank: int = 0) -> int:
     """Advance the state's generator once per step (the JAX step splits
-    ``state.rng`` once)."""
-    return int(torch.randint(0, 2**62, (1,), generator=state.rng))
+    ``state.rng`` once); the data-parallel rank is added, so that ranks
+    draw distinct masks while their generators stay equal."""
+    return int(torch.randint(0, 2**62, (1,), generator=state.rng)) + rank
 
 
 def make_train_step(
-    model_cfg: ModelConfig, train_cfg: TrainConfig
+    model_cfg: ModelConfig, train_cfg: TrainConfig, grad_sync=None,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Metrics]:
-    """Build ``train_step(state, batch) -> metrics``."""
+    """Build ``train_step(state, batch) -> metrics``.
+
+    ``grad_sync`` (``parallel.mesh.GradSync``): the data-parallel
+    gradient and metrics sync, and the rank folded into the dropout
+    seed.  The step keeps its configurations as ``model_cfg`` and
+    ``train_cfg`` attributes, from which ``data_parallel_step`` builds
+    the synced step."""
     if train_cfg.temporal_mode not in ("raw", "compensated"):
         raise ValueError(
             f"unknown temporal_mode {train_cfg.temporal_mode!r} "
@@ -155,22 +172,29 @@ def make_train_step(
         )
         return total, terms
 
+    rank = grad_sync.rank if grad_sync is not None else 0
+
+    def sync(module):
+        if grad_sync is not None:
+            grad_sync(module)
+
     def finish(state, d_loss, g_loss, d_norm, g_norm, terms) -> Metrics:
         _ema_update(train_cfg, state)
         state.step += 1
-        return {
+        metrics = {
             "loss_d": d_loss.detach(),
             "loss_g": g_loss.detach(),
             "grad_norm_g": g_norm,
             "grad_norm_d": d_norm,
             **{k: v.detach() for k, v in terms.items()},
         }
+        return grad_sync.mean(metrics) if grad_sync is not None else metrics
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Metrics:
         stacks = to_unit(_fold(batch["stacks"]))  # (2B, H, W, T*C)
         stable = to_unit(_fold(batch["stable"]))  # (2B, H, W, C)
         center = _center(stacks, model_cfg)       # (2B, H, W, C) unstable
-        flows = g_apply(state, stacks, _dropout_seed(state))
+        flows = g_apply(state, stacks, _dropout_seed(state, rank))
 
         # ---------------- D update (fake detached) ----------------
         with torch.no_grad():
@@ -178,6 +202,7 @@ def make_train_step(
         d_loss = d_loss_fn(state, center, stable, fake)
         state.d_opt.zero_grad(set_to_none=True)
         d_loss.backward()
+        sync(state.d)
         d_norm = optax_global_norm(_grads(state.d))
         state.d_opt.step()
         state.d_sched.step()
@@ -187,11 +212,13 @@ def make_train_step(
             g_loss, terms = g_loss_fn(state, flows, center, stable)
             state.g_opt.zero_grad(set_to_none=True)
             g_loss.backward()
+        sync(state.g)
         g_norm = optax_global_norm(_grads(state.g))
         state.g_opt.step()
         state.g_sched.step()
         return finish(state, d_loss, g_loss, d_norm, g_norm, terms)
 
+    train_step.model_cfg, train_step.train_cfg = model_cfg, train_cfg
     if train_cfg.grad_accum_steps <= 1:
         return train_step
 
@@ -212,7 +239,7 @@ def make_train_step(
             )
         m = stacks.shape[0] // accum
         micro = list(zip(torch.split(stacks, m), torch.split(stable, m)))
-        seed = _dropout_seed(state)
+        seed = _dropout_seed(state, rank)
 
         # ---------------- phase 1: D gradient accumulation ----------
         state.d_opt.zero_grad(set_to_none=True)
@@ -224,6 +251,7 @@ def make_train_step(
             loss = d_loss_fn(state, center, sb, fake) / accum
             loss.backward()
             d_loss = d_loss + loss.detach()
+        sync(state.d)
         d_norm = optax_global_norm(_grads(state.d))
         state.d_opt.step()
         state.d_sched.step()
@@ -240,9 +268,11 @@ def make_train_step(
                 (loss / accum).backward()
                 g_loss = g_loss + loss.detach() / accum
                 terms = {k: terms[k] + t[k].detach() / accum for k in TERMS}
+        sync(state.g)
         g_norm = optax_global_norm(_grads(state.g))
         state.g_opt.step()
         state.g_sched.step()
         return finish(state, d_loss, g_loss, d_norm, g_norm, terms)
 
+    accum_train_step.model_cfg, accum_train_step.train_cfg = model_cfg, train_cfg
     return accum_train_step

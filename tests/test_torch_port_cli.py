@@ -1,7 +1,7 @@
 """The port's command line (``pwstablenet_tpu_torch.cli``) on the CPU
 (``--device cpu``), in process, at the TINY model sizes: every ported
-subcommand, its output line, its files, and each flag that names a
-module not ported yet."""
+subcommand, its output line, its files, the data-parallel flags in a
+single process, and each flag that names a module not ported yet."""
 
 import glob
 import json
@@ -108,6 +108,34 @@ def test_train_resume_continues(tmp_path, capsys):
     steps = [json.loads(ln)["step"] for ln in captured.out.splitlines() if ln.startswith("{")]
     assert steps == [1, 2]
     assert ckpt.latest_step(ck) == 2
+
+
+def test_stabilize_data_parallel_without_a_process_group_is_the_plain_run(tmp_path, capsys):
+    """--data-parallel with no launcher: a mesh of one, so mesh=None."""
+    runs = {}
+    for name, flag in (("plain", []), ("dp", ["--data-parallel"])):
+        wf = str(tmp_path / f"{name}.npz")
+        assert main(["stabilize", "--synthetic", "--frames", "10", "--height", "48",
+                     "--width", "64", "--batch-windows", "4", "--warp-fields", wf,
+                     *flag, *MODEL, *CPU]) == 0
+        runs[name] = (_last_json(capsys), np.load(wf)["warp_fields"])
+    assert runs["dp"][0] == runs["plain"][0]
+    np.testing.assert_array_equal(runs["dp"][1], runs["plain"][1])
+
+
+def test_train_mesh_devices_1_is_the_plain_run(tmp_path, capsys):
+    runs = {}
+    for name, flag in (("plain", []), ("mesh1", ["--mesh-devices", "1"])):
+        ck = str(tmp_path / name)
+        assert main(["train", "--synthetic", "--steps", "2", "--batch-size", "2",
+                     "--log-every", "1", "--checkpoint-dir", ck, *flag, *MODEL, *CPU]) == 0
+        lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+                 if ln.startswith("{")]
+        runs[name] = ([{k: v for k, v in m.items() if k != "sec_per_step"} for m in lines],
+                      ckpt.load_generator_state_dict(ck))
+    assert runs["mesh1"][0] == runs["plain"][0] and len(runs["plain"][0]) == 2
+    for k, v in runs["plain"][1].items():
+        assert torch.equal(runs["mesh1"][1][k], v), k
 
 
 def test_export_writes_a_loadable_step(tmp_path, capsys):
@@ -244,12 +272,10 @@ def test_commands_run_on_the_card_unless_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("argv, module", [
-    (["stabilize", "--synthetic", "--frames", "4", "--data-parallel"], "parallel/"),
     (["stabilize", "--synthetic", "--frames", "4", "--checkpoint", "ref.pth"],
      "interop/torch_import.py"),
-    (["train", "--synthetic", "--steps", "1", "--mesh-devices", "2"], "parallel/"),
     (["bench"], "utils/timing.py"),
-], ids=["data-parallel", "pth-checkpoint", "mesh-devices", "bench"])
+], ids=["pth-checkpoint", "bench"])
 def test_unported_flags_name_their_roadmap_item(argv, module):
     if argv[0] in ("stabilize", "train"):
         argv = [*argv, *MODEL, *CPU]

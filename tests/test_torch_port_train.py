@@ -384,8 +384,14 @@ def test_train_needs_a_card_or_an_explicit_cpu(monkeypatch, tmp_path):
     train(cfg, dataclasses.replace(tcfg, tb_log_dir=str(tmp_path / "tb")), iter([]),
           max_steps=0, device="cpu")
     assert len(os.listdir(tmp_path / "tb")) == 1
-    with pytest.raises(NotImplementedError, match="parallel"):
-        train(cfg, tcfg, iter([]), mesh_cfg=MeshConfig(num_devices=2), device="cpu")
+    # without a process group a mesh of two devices is a mesh of one:
+    # the plain step, and the loop's logs and checkpoints on this process
+    logged = []
+    state = train(cfg, tcfg, iter([make_train_batch(2, 32, 32, 3, seed=0)]),
+                  mesh_cfg=MeshConfig(num_devices=2), max_steps=1, log_fn=logged.append,
+                  device="cpu")
+    assert state.step == 1 and [m["step"] for m in logged] == [1]
+    assert ckpt.latest_step(tcfg.checkpoint_dir) == 1
 
 
 def test_prefetcher_yields_in_order_raises_and_closes():
