@@ -6,7 +6,8 @@
 Phases, each printing one JSON line:
 
 1. device  - requires a CUDA card (exits non-zero without one); prints
-             whether ``ml_dtypes`` (bfloat16 warp fields) is installed.
+             whether ``ml_dtypes`` (bfloat16 warp fields) and
+             ``tensorstore`` (the Orbax checkpoint reader) are installed.
 2. build   - builds the CUDA kernels from ``pwstablenet_tpu_torch/csrc``.
 3. kernels - each kernel against its plain PyTorch version on the card:
              ``grid_sample_f32`` at (8,256,256,3) and, on a random and on
@@ -84,11 +85,27 @@ Phases, each printing one JSON line:
              card's machine, which has ``cv2`` but no OpenCV C++
              headers; the line names which): 24 frames, the file and
              the archive bitwise equal to ``stabilize_frames``.
+             ``interop`` (after the surface): the main path's weights
+             to the reference's ``.pth`` layout (``torch.save``, ~498 MB)
+             and back through ``load_torch_checkpoint``, bit for bit;
+             a ``Stabilizer`` from it on the 24-frame 720p clip, bitwise
+             equal to the main path's frames and flows, both forward
+             kernels launched; ``torch_ref.TorchCascadedGenerator``
+             loaded from the ``.pth`` against the port's f32 flows on
+             one 256x256 stack (TF32 off; MSE <= 1e-3, max |diff|
+             printed); ``stabilize --synthetic --checkpoint x.pth`` at
+             720p through the CLI; save and load seconds.  The JAX
+             package's Orbax checkpoints need JAX to write: their reader
+             is held by the CPU tests (``"orbax": "cpu_tests_only"``).
 7. timing  - frames/s of ``stabilize_frames`` and ms per chunk (bf16,
-             720p); ms per full-width train step, steps/s, windows/s and
-             peak memory; ``torch.profiler`` passes over one
-             ``stabilize_frames`` call and over 3 train steps (the
-             device's idle share and its time by kernel); each kernel's
+             720p), with ``utils.device_time`` of the chunk and of one
+             ``grid_sample_f32`` launch at (8,256,256,3); ms per
+             full-width train step, steps/s, windows/s and peak memory;
+             ``torch.profiler`` passes over one ``stabilize_frames``
+             call and over 3 train steps (the device's idle share and
+             its time by kernel; the train steps' Chrome trace written
+             through ``utils.profiling.trace``, its bytes and events
+             printed); each kernel's
              time (``grid_sample_f32`` at both its shapes) beside its
              bound, its plain version's time and one PyTorch call's
              (``F.grid_sample``, ``grid_sampler_2d_backward``; the port
@@ -116,7 +133,8 @@ Phases, each printing one JSON line:
 
 Then the ``kernels`` line (with the launches of each parallel path at
 world size 1: ``launches_dp_train``, ``launches_clip_sharded``,
-``launches_spatial``), the card's name and power limit from
+``launches_spatial``, and of the clip from the ``.pth``:
+``launches_interop``), the card's name and power limit from
 ``nvidia-smi``, and ``{"ok": true, "device": {...}}`` as the last line.
 Any failed check raises and exits non-zero.
 """
@@ -186,37 +204,36 @@ def time_launches(torch, fn, reps, flush):
     return statistics.median(times)
 
 
-def profile_device(torch, fn):
+def profile_device(torch, fn, trace_dir=None):
     """Wall ms of ``fn()`` under ``torch.profiler``, the device's busy ms
     (device-side events only: the aten ops that launch kernels carry the
     same time again, and so do user annotations such as
     ``Optimizer.step#Adam.step`` on the device timeline) and the top
-    device rows."""
+    device rows.  With ``trace_dir``, the profile is
+    ``utils.profiling.trace``'s, which writes its Chrome trace there."""
     from torch.profiler import ProfilerActivity, profile
 
+    from pwstablenet_tpu_torch.utils.profiling import trace
+    from pwstablenet_tpu_torch.utils.timing import device_rows
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    ctx = (trace(trace_dir) if trace_dir else
+           profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True))
+    with ctx as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows, annotations = [], []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = ev.self_device_time_total
-        if dev_us <= 0:
-            continue
-        if getattr(ev, "is_user_annotation", False):
-            annotations.append([ev.key[:90], dev_us / 1e3, ev.count])
-        else:
-            rows.append((dev_us, ev.key[:90], ev.count))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
+    rows = device_rows(prof)
+    annotations = [[ev.key[:90], ev.self_device_time_total / 1e3, ev.count]
+                   for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and ev.self_device_time_total > 0
+                   and getattr(ev, "is_user_annotation", False)]
+    busy_ms = sum(ms for _, ms, _ in rows)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": (1.0 - busy_ms / wall_ms) if rows else None,
-            "top_device_ms": [[k, us / 1e3, c] for us, k, c in rows[:12]],
+            "top_device_ms": [[k[:90], ms, c] for k, ms, c in rows[:12]],
             "annotations_not_counted_ms": annotations}
 
 
@@ -455,6 +472,108 @@ def surface(torch, np, st, clip, out, flows, work) -> None:
     emit("surface_video", result=res, seconds=secs, frames_per_s=n_frames / secs,
          launches=launches, decoder="native" if native["available"] else "opencv",
          native_runtime=native, bitwise_equal_to_stabilize_frames=True)
+
+
+def interop(torch, np, st, clip, out, flows, work) -> dict:
+    """Checkpoint interop on the card, at the main path's full-width
+    model: its weights to the reference's ``.pth`` layout and back (bit
+    for bit), the 24-frame 720p clip stabilized from the ``.pth``
+    (bitwise equal to the main path's frames and flows), the reference
+    layout's own modules (``torch_ref``, ``F.grid_sample`` between the
+    stages) against the port's f32 flows on one 256x256 stack (warp-map
+    MSE <= 1e-3), and ``stabilize --checkpoint x.pth`` through the CLI.
+    The JAX package's Orbax checkpoints need JAX to write, which this
+    machine lacks: the CPU tests hold that reader.  Returns the kernel
+    launches of the clip stabilized from the ``.pth``."""
+    import contextlib
+    import io
+
+    import torch.nn.functional as F
+
+    from pwstablenet_tpu_torch.cli.main import main as cli
+    from pwstablenet_tpu_torch.config import PipelineConfig
+    from pwstablenet_tpu_torch.interop import load_torch_checkpoint, port_to_torch_state_dict
+    from pwstablenet_tpu_torch.interop.torch_ref import TorchCascadedGenerator
+    from pwstablenet_tpu_torch.kernels import grid_sample as K
+    from pwstablenet_tpu_torch.models.generator import CascadedGenerator
+    from pwstablenet_tpu_torch.ops.pixels import to_unit
+    from pwstablenet_tpu_torch.pipeline import Stabilizer
+
+    t_phase = time.perf_counter()
+    cfg = st.model_cfg
+    sd = {k: v.detach().cpu() for k, v in st.model.state_dict().items()}
+    pth = os.path.join(work, "ref.pth")
+    t0 = time.perf_counter()
+    torch.save(port_to_torch_state_dict(sd, cfg), pth)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_torch_checkpoint(pth, cfg)
+    load_s = time.perf_counter() - t0
+    check(list(loaded) == list(sd) and all(torch.equal(loaded[k], v) for k, v in sd.items()),
+          ".pth round trip bit for bit")
+
+    # the main path's clip, from the .pth
+    pst = Stabilizer(cfg, PipelineConfig(batch_windows=8), state_dict=loaded)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    p_out, p_flows = pst.stabilize_frames(clip)
+    torch.cuda.synchronize()
+    stab_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    del pst
+    check(np.array_equal(p_out, out) and np.array_equal(p_flows, flows),
+          "the clip from the .pth equals the main path's, frames and flows")
+    check(launches["grid_sample_f32"] > 0 and launches["grid_sample_packed_u8"] > 0,
+          f"interop kernel launches {launches}")
+
+    # the reference layout's modules against the port's f32 flows, on one
+    # 256x256 stack of the clip's first frames (TF32 off)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h, w = cfg.model_resolution
+    frames = to_unit(torch.from_numpy(clip[: cfg.temporal_window]).cuda()).permute(0, 3, 1, 2)
+    small = F.interpolate(frames, size=(h, w), mode="bilinear", align_corners=False,
+                          antialias=True)
+    stack = small.reshape(1, -1, h, w)  # frame-major channels
+    oracle = TorchCascadedGenerator(cfg).cuda().eval()
+    oracle.load_state_dict(torch.load(pth, map_location="cuda", weights_only=True))
+    port32 = CascadedGenerator(dataclasses.replace(cfg, compute_dtype="float32"))
+    port32.load_state_dict(loaded)
+    port32 = port32.cuda().eval()
+    with torch.no_grad():
+        ref_flows = [f.permute(0, 2, 3, 1) for f in oracle(stack)]
+        our_flows = port32(stack.permute(0, 2, 3, 1).contiguous())
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    per_stage = [{"mse": float(((o - r) ** 2).mean()), "max_abs_diff": float((o - r).abs().max()),
+                  "flow_abs_max": float(r.abs().max())}
+                 for o, r in zip(our_flows, ref_flows)]
+    del oracle, port32
+    check(all(s_["mse"] <= 1e-3 for s_ in per_stage), f"oracle flows: {per_stage}")
+
+    # the CLI, in process
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(["stabilize", "--synthetic", "--frames", "24", "--height", "720",
+                  "--width", "1280", "--checkpoint", pth])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_launches = dict(K.LAUNCHES)
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(rc == 0 and line["frames"] == 24, f"cli stabilize --checkpoint x.pth: {rc} {line}")
+    # the synthetic clip is float, so its output warp is the f32 kernel too
+    check(cli_launches["grid_sample_f32"] > 0,
+          f"cli stabilize --checkpoint x.pth launches {cli_launches}")
+    emit("interop", pth_bytes=os.path.getsize(pth), save_seconds=save_s, load_seconds=load_s,
+         round_trip_bitwise=True, stabilize_seconds=stab_s, launches=launches,
+         bitwise_equal_to_main=True, oracle_f32=per_stage,
+         cli={"line": line, "seconds": cli_s, "launches": cli_launches},
+         orbax="cpu_tests_only", seconds=time.perf_counter() - t_phase)
+    return launches
 
 
 def train_deepstab(torch, np, cfg, tcfg, before, steps, synthetic) -> None:
@@ -937,9 +1056,17 @@ def main() -> int:
         ml_dtypes_version = ml_dtypes.__version__
     except ImportError:
         ml_dtypes_version = None
+    try:  # the Orbax checkpoint reader needs it (interop.from_orbax)
+        import importlib.metadata
+
+        import tensorstore  # noqa: F401
+        tensorstore_version = importlib.metadata.version("tensorstore")
+    except ImportError:
+        tensorstore_version = None
     emit("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi,
-         torch=torch.__version__, cuda=torch.version.cuda, ml_dtypes=ml_dtypes_version)
+         torch=torch.__version__, cuda=torch.version.cuda, ml_dtypes=ml_dtypes_version,
+         tensorstore=tensorstore_version)
 
     # ---- 2. build ---------------------------------------------------
     t0 = time.perf_counter()
@@ -1177,10 +1304,21 @@ def main() -> int:
         if i >= 1:
             run_ms.append(a.elapsed_time(b))
     stab_ms = statistics.median(run_ms)
+    # utils.timing.device_time: the device-side events of 10 traced calls
+    # (no L2 flush between them), beside the CUDA-event times
+    from pwstablenet_tpu_torch.utils import device_time
+
+    dgen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    d_img = torch.rand(8, 256, 256, 3, device="cuda", generator=dgen)
+    d_grid = smooth_grid(torch, 8, 256, 256, 0.2, dgen)
     emit("timing", chunk_ms=statistics.median(chunk_ms), chunk_windows=8,
          stabilize_frames_ms=stab_ms, frames=n_frames,
          frames_per_s=n_frames / (stab_ms / 1e3), compute_dtype=cfg.compute_dtype,
-         frame_size=[fh, fw])
+         frame_size=[fh, fw],
+         chunk_device_time_ms=device_time(st._chunk_step, (frames_dev,)) * 1e3,
+         grid_sample_f32_device_time_ms=device_time(K.grid_sample_f32, (d_img, d_grid)) * 1e3,
+         grid_sample_f32_device_time_shape=list(d_img.shape))
+    del d_img, d_grid
 
     # device busy share of stabilize_frames, and device time by kernel
     emit("profile", **profile_device(torch, lambda: st.stabilize_frames(clip)))
@@ -1188,6 +1326,9 @@ def main() -> int:
     # ---- the user-facing surface -------------------------------------
     with tempfile.TemporaryDirectory() as work:
         surface(torch, np, st, clip, out, flows, work)
+    # ---- checkpoint interop ------------------------------------------
+    with tempfile.TemporaryDirectory() as work:
+        interop_launches = interop(torch, np, st, clip, out, flows, work)
     del st
 
     # ---- 6. training path --------------------------------------------
@@ -1303,8 +1444,15 @@ def main() -> int:
          windows_per_step=windows, windows_per_s=windows * 1e3 / med,
          peak_memory_gb=peak / 1e9, compute_dtype=cfg.compute_dtype,
          model_resolution=list(cfg.model_resolution))
-    emit("train_profile", steps=3,
-         **profile_device(torch, lambda: [step_fn(tstate, dev_batch) for _ in range(3)]))
+    with tempfile.TemporaryDirectory() as trace_dir:
+        prof = profile_device(torch, lambda: [step_fn(tstate, dev_batch) for _ in range(3)],
+                              trace_dir=trace_dir)
+        (trace_file,) = os.listdir(trace_dir)
+        trace_path = os.path.join(trace_dir, trace_file)
+        with open(trace_path) as f:
+            trace_events = len(json.load(f)["traceEvents"])
+        emit("train_profile", steps=3, **prof, trace_file_bytes=os.path.getsize(trace_path),
+             trace_events=trace_events)
     del tstate, step_fn, dev_batch
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
@@ -1384,6 +1532,7 @@ def main() -> int:
          "launches": launches["grid_sample_f32"],
          "launches_train": train_launches["grid_sample_f32"],
          **{f"launches_{path}": n["grid_sample_f32"] for path, n in par.items()},
+         "launches_interop": interop_launches["grid_sample_f32"],
          "max_abs_err": f32_err,
          "ms": k1["ms"], "kernel_ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": b1, "bound_by": by1, "library_ms": k1["library_ms"],
@@ -1397,6 +1546,7 @@ def main() -> int:
          "replaces": "pwstablenet_tpu/kernels/grid_sample_pallas.py:714 (grid_sample_pallas_packed)",
          "launches": launches["grid_sample_packed_u8"],
          **{f"launches_{path}": n["grid_sample_packed_u8"] for path, n in par.items()},
+         "launches_interop": interop_launches["grid_sample_packed_u8"],
          "max_abs_err": u8_err,
          "ms": k2["ms"], "kernel_ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": b2, "bound_by": by2, "library_ms": k2["library_ms"],

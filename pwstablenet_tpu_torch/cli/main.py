@@ -12,9 +12,12 @@ Every command that runs a model runs on the card unless ``--device``
 names another device (``--device cpu``: the plain CPU path).  Under a
 launcher that starts one process per GPU (``torchrun``), ``train`` is
 data-parallel over the processes and ``stabilize --data-parallel``
-clip-sharded; only rank 0 prints and writes files.  Flags and
-subcommands whose modules are not ported yet raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+clip-sharded; only rank 0 prints and writes files.  ``--checkpoint``
+takes a reference ``.pth``/``.pt`` file, a port checkpoint directory or
+the JAX package's Orbax directory (an export or a training run's), and
+``train --resume`` continues a JAX run's Orbax ``--checkpoint-dir``.
+``bench`` raises ``NotImplementedError`` naming its ``ROADMAP.md`` item:
+the port's benchmark is not written yet.
 """
 
 from __future__ import annotations
@@ -24,12 +27,6 @@ import dataclasses
 import json
 import math
 import sys
-
-
-def _unported(what: str, module: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: {module} is not ported yet (ROADMAP.md Queue 1, item {item})"
-    )
 
 
 def _step_or_best(value: str):
@@ -99,15 +96,18 @@ def _model_cfg(args):
     return dataclasses.replace(cfg, **over)
 
 
-def _generator_weights(path: str, step=None):
-    """A port checkpoint directory (a training run's, or an inference
-    export) -> the generator's ``state_dict``."""
+def _generator_weights(path: str, cfg, step=None):
+    """A checkpoint -> the generator's ``state_dict``: a reference
+    ``.pth``/``.pt`` file, a port checkpoint directory (a training run's,
+    or an inference export) or the JAX package's Orbax directory (a
+    training run's, or a ``save_params`` export)."""
     if path.endswith((".pth", ".pt")):
-        raise _unported("a reference .pth checkpoint",
-                        "interop/torch_import.py", 15)
+        from pwstablenet_tpu_torch.interop import load_torch_checkpoint
+
+        return load_torch_checkpoint(path, cfg)
     from pwstablenet_tpu_torch.train import checkpoint as ckpt
 
-    return ckpt.load_generator_state_dict(path, step=step)
+    return ckpt.load_generator_state_dict(path, step=step, cfg=cfg)
 
 
 def cmd_stabilize(args) -> int:
@@ -135,7 +135,7 @@ def cmd_stabilize(args) -> int:
     primary = mesh is None or mesh.rank == 0
     state_dict = None
     if args.checkpoint:
-        state_dict = _generator_weights(args.checkpoint, args.checkpoint_step)
+        state_dict = _generator_weights(args.checkpoint, model_cfg, args.checkpoint_step)
     stab = Stabilizer(model_cfg, pipe_cfg, state_dict=state_dict, device=args.device,
                       mesh=mesh)
 
@@ -267,7 +267,7 @@ def cmd_export(args) -> int:
     from pwstablenet_tpu_torch.pipeline import Stabilizer
 
     model_cfg = _model_cfg(args)
-    state_dict = _generator_weights(args.checkpoint) if args.checkpoint else None
+    state_dict = _generator_weights(args.checkpoint, model_cfg) if args.checkpoint else None
     stab = Stabilizer(model_cfg, PipelineConfig(batch_windows=args.batch_windows),
                       state_dict=state_dict, device=args.device)
     path = save_chunk_step(args.output, stab, frame_hw=(args.height, args.width))
@@ -361,7 +361,10 @@ def cmd_make_data(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    raise _unported("bench", "utils/timing.py, utils/profiling.py and the port's bench", 17)
+    raise NotImplementedError(
+        "bench: the port's benchmark is not written yet; it comes with the "
+        "benchmark PR that writes BENCHMARK.json (ROADMAP.md Queue 1, item 17)"
+    )
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -373,8 +376,11 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--input")
     s.add_argument("--output")
     s.add_argument("--checkpoint",
-                   help="port checkpoint directory (a training run's or "
-                        "an --export-params export)")
+                   help="generator weights: a reference .pth/.pt file, a "
+                        "port checkpoint directory (a training run's or an "
+                        "--export-params export) or the JAX package's "
+                        "Orbax directory (a training run's or a params "
+                        "export)")
     s.add_argument("--checkpoint-step", type=_step_or_best, default=None,
                    help="pick this step from a training checkpoint dir "
                         "(default: latest), or 'best' for the "
@@ -411,7 +417,9 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--batch-size", type=int, default=8)
     t.add_argument("--steps", type=int, default=1000)
     t.add_argument("--checkpoint-dir", default="checkpoints")
-    t.add_argument("--resume", action="store_true")
+    t.add_argument("--resume", action="store_true",
+                   help="continue from the newest step in --checkpoint-dir "
+                        "(the port's, or a JAX run's Orbax steps)")
     t.add_argument("--lr", type=float, default=2e-4)
     t.add_argument("--gan-loss", choices=["lsgan", "vanilla", "hinge"],
                    default="lsgan")
@@ -460,7 +468,10 @@ def build_parser() -> argparse.ArgumentParser:
     x = sub.add_parser("export", help="export the inference step (torch.export, .pt2)")
     _add_model_args(x)
     x.add_argument("--output", required=True, help="artifact path")
-    x.add_argument("--checkpoint", help="port checkpoint directory")
+    x.add_argument("--checkpoint",
+                   help="generator weights: a reference .pth/.pt file, a "
+                        "port checkpoint directory or the JAX package's "
+                        "Orbax directory")
     x.add_argument("--height", type=int, default=720)
     x.add_argument("--width", type=int, default=1280)
     x.add_argument("--batch-windows", type=int, default=8)
@@ -480,7 +491,7 @@ def build_parser() -> argparse.ArgumentParser:
     aw.add_argument("--batch-frames", type=int, default=8)
     aw.set_defaults(fn=cmd_apply_warp)
 
-    b = sub.add_parser("bench", help="run the benchmark suite (not ported yet)")
+    b = sub.add_parser("bench", help="run the benchmark suite (not written yet)")
     b.set_defaults(fn=cmd_bench)
 
     e = sub.add_parser("eval", help="stabilization quality metrics")

@@ -17,7 +17,11 @@ An inference-only export (``save_generator_state_dict``, the CLI's
 ``load_generator_state_dict`` reads it as well as a training
 checkpoint directory.
 
-Reading the JAX package's Orbax checkpoints is not ported yet.
+The JAX package's Orbax checkpoints are read too (``interop.from_orbax``,
+with ``tensorstore``): ``load_generator_state_dict`` and
+``restore_state`` hand an Orbax directory that holds no step of the
+port's format to it, and ``latest_step`` counts its steps, so a resume
+continues a JAX run and writes the port's format from there.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from typing import Dict, List, Optional, Union
 
 import torch
 
+from pwstablenet_tpu_torch.config import ModelConfig
+from pwstablenet_tpu_torch.interop import from_orbax
 from pwstablenet_tpu_torch.train.state import TrainState
 
 STATE_FILE = "state.pt"
@@ -48,8 +54,14 @@ def _numbered_steps(directory: str) -> List[int]:
     )
 
 
+def _orbax(directory: str) -> bool:
+    """An Orbax checkpoint of the JAX package's, and no step of ours."""
+    return not _numbered_steps(directory) and from_orbax.is_orbax_checkpoint(directory)
+
+
 def latest_step(directory: str) -> Optional[int]:
-    steps = _numbered_steps(directory)
+    """The newest step of ours, else of a JAX run's Orbax checkpoints."""
+    steps = _numbered_steps(directory) or from_orbax.orbax_steps(directory)
     return steps[-1] if steps else None
 
 
@@ -101,13 +113,35 @@ def _event(**fields) -> None:
     print(json.dumps(fields), file=sys.stderr)
 
 
+def reconcile_ema(state: TrainState, saved_ema: Optional[Dict]) -> TrainState:
+    """Set ``state``'s EMA from a checkpoint's (a ``state_dict``, or None
+    when the checkpoint has none), after the rest is restored.  A run
+    that does not track an EMA drops the saved one; a run that tracks
+    one, from a checkpoint without, starts it at the restored generator;
+    either with a notice on stderr."""
+    if state.g_ema is not None and saved_ema is not None:
+        state.g_ema.load_state_dict(saved_ema)
+    elif state.g_ema is not None:
+        state.g_ema = copy.deepcopy(state.g).requires_grad_(False)
+        _event(event="ema_initialized_on_resume",
+               reason="this run tracks an EMA but the checkpoint has none; "
+                      "starting it at the restored params")
+    elif saved_ema is not None:
+        _event(event="ema_dropped_on_resume",
+               reason="checkpoint tracks an EMA but this run has ema_decay=0")
+    return state
+
+
 def restore_state(
     directory: str, state: TrainState, step: Optional[int] = None
 ) -> TrainState:
     """Load step ``step`` (default: the newest) into ``state`` in place
     and return it.  Resuming with EMA tracking switched on or off
     relative to the checkpoint drops the saved EMA, or starts a new one
-    at the restored generator, with a notice on stderr."""
+    at the restored generator, with a notice on stderr.  A JAX run's
+    Orbax directory goes to ``from_orbax.restore_state_from_orbax``."""
+    if _orbax(directory):
+        return from_orbax.restore_state_from_orbax(directory, state, step)
     p = _load(directory, step)
     state.g.load_state_dict(p["g"])
     state.d.load_state_dict(p["d"])
@@ -118,17 +152,7 @@ def restore_state(
     state.d_sched.load_state_dict(p["d_sched"])
     state.rng.set_state(p["rng"])
     state.step = int(p["step"])
-    if state.g_ema is not None and p["g_ema"] is not None:
-        state.g_ema.load_state_dict(p["g_ema"])
-    elif state.g_ema is not None:
-        state.g_ema = copy.deepcopy(state.g).requires_grad_(False)
-        _event(event="ema_initialized_on_resume",
-               reason="this run tracks an EMA but the checkpoint has none; "
-                      "starting it at the restored params")
-    elif p["g_ema"] is not None:
-        _event(event="ema_dropped_on_resume",
-               reason="checkpoint tracks an EMA but this run has ema_decay=0")
-    return state
+    return reconcile_ema(state, p["g_ema"])
 
 
 def save_best(
@@ -167,12 +191,19 @@ def save_generator_state_dict(directory: str, state_dict: Dict[str, torch.Tensor
 def load_generator_state_dict(
     directory: str, prefer_ema: bool = True,
     step: Optional[Union[int, str]] = None,
+    cfg: Optional[ModelConfig] = None,
 ) -> Dict[str, torch.Tensor]:
     """Generator weights (a ``state_dict``) from a checkpoint directory:
     the EMA copy when tracked and ``prefer_ema``, else the raw weights,
     of ``step`` (default: the newest); ``step="best"`` loads the
     ``save_best`` export.  A directory with no numbered steps and a
-    ``generator.pt`` (an inference-only export) gives that export."""
+    ``generator.pt`` (an inference-only export) gives that export.  A
+    JAX run's Orbax directory or export goes to
+    ``from_orbax.load_orbax_generator_state_dict``, which checks the
+    weights against ``cfg`` (default: ``ModelConfig()``)."""
+    if _orbax(directory):
+        return from_orbax.load_orbax_generator_state_dict(
+            directory, cfg or ModelConfig(), prefer_ema, step)
     if step == "best":
         path = os.path.join(directory, BEST_DIR, GENERATOR_FILE)
         if best_step(directory) is None or not os.path.exists(path):

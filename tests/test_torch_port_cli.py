@@ -1,17 +1,28 @@
 """The port's command line (``pwstablenet_tpu_torch.cli``) on the CPU
 (``--device cpu``), in process, at the TINY model sizes: every ported
 subcommand, its output line, its files, the data-parallel flags in a
-single process, and each flag that names a module not ported yet."""
+single process, checkpoints from the reference's ``.pth`` and the JAX
+package's Orbax directories, and the subcommand not written yet."""
 
+import dataclasses
 import glob
 import json
+import os
 
 import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
 from pwstablenet_tpu.cli import main as jax_main
+from pwstablenet_tpu.config import ModelConfig as JaxModelConfig
+from pwstablenet_tpu.config import TrainConfig as JaxTrainConfig
 from pwstablenet_tpu.data import warp_fields as jax_warp_fields
+from pwstablenet_tpu.interop.torch_ref import TorchCascadedGenerator as JaxTorchGenerator
+from pwstablenet_tpu.train import checkpoint as jax_ckpt
+from pwstablenet_tpu.train import create_train_state as jax_create_train_state
 
 from pwstablenet_tpu_torch.cli import main
 from pwstablenet_tpu_torch.config import DataConfig, ModelConfig, PipelineConfig
@@ -19,6 +30,7 @@ from pwstablenet_tpu_torch.data import video_io, warp_fields
 from pwstablenet_tpu_torch.data.deepstab import DeepStabDataset
 from pwstablenet_tpu_torch.data.synthetic import synthetic_pair_clip
 from pwstablenet_tpu_torch.export import ExportedStabilizerStep
+from pwstablenet_tpu_torch.interop import jax_params_to_state_dict, load_torch_checkpoint
 from pwstablenet_tpu_torch.pipeline import Stabilizer
 from pwstablenet_tpu_torch.train import checkpoint as ckpt
 from pwstablenet_tpu_torch.utils.tb_writer import read_event_file
@@ -108,6 +120,92 @@ def test_train_resume_continues(tmp_path, capsys):
     steps = [json.loads(ln)["step"] for ln in captured.out.splitlines() if ln.startswith("{")]
     assert steps == [1, 2]
     assert ckpt.latest_step(ck) == 2
+
+
+def _reference_pth(path):
+    """A ``.pth`` of the JAX package's ``TorchCascadedGenerator`` at the
+    TINY sizes, every conv redrawn (a nonzero head)."""
+    model = JaxTorchGenerator(JaxModelConfig(**dataclasses.asdict(TINY)))
+    torch.manual_seed(0)
+    for m in model.modules():
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+            torch.nn.init.normal_(m.weight, std=0.05)
+            torch.nn.init.normal_(m.bias, std=0.02)
+    torch.save({"state_dict": model.state_dict()}, path)
+    return path
+
+
+def _orbax_export(path):
+    """A ``save_params`` export of the JAX package at the TINY sizes."""
+    from test_torch_port_models import random_jax_params
+
+    params = random_jax_params(JaxModelConfig(**dataclasses.asdict(TINY)), 3)
+    jax_ckpt.save_params(path, params)
+    return path, jax_params_to_state_dict(params, TINY)
+
+
+@pytest.mark.parametrize("kind", ["pth", "orbax"])
+def test_stabilize_from_a_reference_or_jax_checkpoint(tmp_path, capsys, monkeypatch, kind):
+    """``stabilize --checkpoint`` a ``.pth`` or an Orbax export: exit 0,
+    and the frames and fields of the same weights passed directly."""
+    if kind == "pth":
+        path = _reference_pth(str(tmp_path / "ref.pth"))
+        sd = load_torch_checkpoint(path, TINY)
+    else:
+        path, sd = _orbax_export(str(tmp_path / "export"))
+    seen = []
+    stabilize_frames = Stabilizer.stabilize_frames
+
+    def recorded(self, frames):
+        seen.append(stabilize_frames(self, frames))
+        return seen[-1]
+
+    monkeypatch.setattr(Stabilizer, "stabilize_frames", recorded)
+    rc = main(["stabilize", "--synthetic", "--frames", "10", "--height", "48",
+               "--width", "64", "--batch-windows", "4", "--checkpoint", path, *MODEL, *CPU])
+    assert rc == 0 and _last_json(capsys)["frames"] == 10
+    _, clip = synthetic_pair_clip(10, 48, 64, seed=0)
+    st = Stabilizer(TINY, PipelineConfig(batch_windows=4), state_dict=sd, device="cpu")
+    out, flows = stabilize_frames(st, clip)
+    assert np.abs(flows).max() > 1e-3  # the weights' warp, not the identity
+    np.testing.assert_array_equal(seen[0][0], out)
+    np.testing.assert_array_equal(seen[0][1], flows)
+
+
+def test_export_from_a_reference_pth(tmp_path, capsys):
+    path = _reference_pth(str(tmp_path / "ref.pth"))
+    out = str(tmp_path / "step.pt2")
+    rc = main(["export", "--output", out, "--height", "48", "--width", "64",
+               "--batch-windows", "4", "--checkpoint", path, *MODEL, *CPU])
+    assert rc == 0 and _last_json(capsys)["artifact"] == out
+    st = Stabilizer(TINY, PipelineConfig(batch_windows=4),
+                    state_dict=load_torch_checkpoint(path, TINY), device="cpu")
+    frames = torch.randint(0, 256, (4 + 2, 48, 64, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(1))
+    got, want = ExportedStabilizerStep.load(out)(st.model.state_dict(), frames), \
+        st._chunk_step(frames)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_train_resume_from_a_jax_orbax_run(tmp_path, capsys):
+    """``train --resume`` over a ``--checkpoint-dir`` that holds a JAX run's
+    Orbax step: it continues from that step and writes the port's
+    format from there."""
+    ck = str(tmp_path / "ckpt")
+    jstate, _ = jax_create_train_state(JaxModelConfig(**dataclasses.asdict(TINY)),
+                                       JaxTrainConfig(batch_size=2), jax.random.PRNGKey(0))
+    jax_ckpt.save_state(ck, jstate.replace(step=jnp.asarray(1, jnp.int32)))
+    rc = main(["train", "--synthetic", "--batch-size", "2", "--log-every", "1",
+               "--checkpoint-every", "1", "--checkpoint-dir", ck, "--steps", "3",
+               "--resume", *MODEL, *CPU])
+    assert rc == 0
+    captured = capsys.readouterr()
+    assert json.dumps({"event": "resumed", "step": 1}) in captured.err
+    steps = [json.loads(ln)["step"] for ln in captured.out.splitlines() if ln.startswith("{")]
+    assert steps == [2, 3]
+    assert ckpt.latest_step(ck) == 3
+    assert os.path.isfile(os.path.join(ck, "3", ckpt.STATE_FILE))
+    assert os.path.isdir(os.path.join(ck, "1", "default"))  # the JAX run's step stays
 
 
 def test_stabilize_data_parallel_without_a_process_group_is_the_plain_run(tmp_path, capsys):
@@ -272,10 +370,8 @@ def test_commands_run_on_the_card_unless_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("argv, module", [
-    (["stabilize", "--synthetic", "--frames", "4", "--checkpoint", "ref.pth"],
-     "interop/torch_import.py"),
-    (["bench"], "utils/timing.py"),
-], ids=["pth-checkpoint", "bench"])
+    (["bench"], "BENCHMARK.json"),
+], ids=["bench"])
 def test_unported_flags_name_their_roadmap_item(argv, module):
     if argv[0] in ("stabilize", "train"):
         argv = [*argv, *MODEL, *CPU]

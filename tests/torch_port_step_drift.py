@@ -1,7 +1,10 @@
-"""Why the vanilla GAN loss's second train step is compared on batch 5,
-not 4 (a diagnostic, not a test; prints JSON lines).
+"""Why the train-step parity test syncs the whole state between steps,
+and why the vanilla GAN loss's second step is compared on batch 5, not 4
+(a diagnostic, not a test; prints JSON lines).
 
-    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_step_drift.py
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_step_drift.py [carry]
+
+With ``carry`` it prints only the ``carry`` readings.
 
 1. ``readings``: the parity test's per-step readings (share of G's and
    D's elements within 1e-6 of JAX's, max |diff| / lr) for each GAN loss
@@ -14,6 +17,16 @@ not 4 (a diagnostic, not a test; prints JSON lines).
    to its largest element: as the port computes it, and with the
    differing elements put on JAX's side of the kink (weights only:
    the norm-fed biases' gradients are rounding noise).
+3. ``carry``: for each case of ``test_train_step_matches_jax``, step 1's
+   free elements (not norm-fed) of G and D off by more than 1e-6, each
+   with its name, flat index, |grad| (JAX's first Adam moment over
+   1 - b1) and |diff| / lr; then step 2's share of free elements within
+   1e-6 and max |diff| / lr, once with only the norm-fed biases synced
+   after step 1 and once with the whole state synced.  Adam's first
+   update is about lr * sign(grad), so an element whose gradient is
+   within rounding of 0 may land up to 2 lr apart at step 1 on some
+   hosts; left unsynced, such elements carry the two sides into step 2
+   from different states.
 """
 
 import json
@@ -33,8 +46,11 @@ from pwstablenet_tpu_torch.interop.from_jax import tree_to_state_dict
 from pwstablenet_tpu_torch.models import discriminator as port_disc
 from pwstablenet_tpu_torch.train import losses as port_losses
 
+import sys
+
 from test_torch_port_train import (
-    CPU, TCFG, TINY, _pair, _run_pair, _sync_from_jax, batch_to_device, make_train_batch,
+    CASES, CPU, TCFG, TINY, _pair, _param_diffs, _run_pair, _sync_from_jax,
+    batch_to_device, feeds_a_norm, make_train_batch,
 )
 
 
@@ -98,7 +114,54 @@ def kink(gan="vanilla", seeds=(3, 4)):
     return out
 
 
+def _off(module, jparams, jopt, lr, b1):
+    """Free elements of ``module`` more than 1e-6 from JAX's after step 1."""
+    ours = module.state_dict()
+    ref = tree_to_state_dict(jax.device_get(jparams))
+    mu = tree_to_state_dict(jax.device_get(jopt[0].mu))
+    off = []
+    for name, a in ours.items():
+        if feeds_a_norm(name, ours):
+            continue
+        d = (a - ref[name]).abs().flatten()
+        for i in torch.nonzero(d > 1e-6).flatten().tolist():
+            off.append({"name": name, "index": i,
+                        "abs_grad": float(mu[name].flatten()[i].abs()) / (1 - b1),
+                        "diff_over_lr": float(d[i]) / lr})
+    return off
+
+
+def carry(train_over):
+    over = {**TCFG, **train_over}
+    seeds = over.pop("seeds", (3, 4))
+    lr, b1 = over["lr_g"], 0.5
+    out = {"case": train_over}
+    for full in (False, True):
+        jstep, jstate, step, state = _pair(TINY, over)
+        batches = [make_train_batch(2, 32, 32, TINY["temporal_window"], seed=s)
+                   for s in seeds]
+        jstate, _ = jstep(jstate, jax.tree_util.tree_map(jnp.asarray, batches[0]))
+        step(state, batch_to_device(batches[0], CPU))
+        if not full:
+            out["step1_off"] = {
+                "G": _off(state.g, jstate.g_params, jstate.g_opt, lr, b1),
+                "D": _off(state.d, jstate.d_params, jstate.d_opt, lr, b1)}
+        _sync_from_jax(state, jstate, full=full)
+        jstate, _ = jstep(jstate, jax.tree_util.tree_map(jnp.asarray, batches[1]))
+        step(state, batch_to_device(batches[1], CPU))
+        out["step2_full_sync" if full else "step2_partial_sync"] = {
+            what: {"share": float((free <= 1e-6).double().mean()),
+                   "max_diff_over_lr": float(free.max()) / lr}
+            for what, (_, free) in (("G", _param_diffs(state.g, jstate.g_params)),
+                                    ("D", _param_diffs(state.d, jstate.d_params)))}
+    return out
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["carry"]:
+        for case in CASES:
+            print(json.dumps({"carry": carry(case)}), flush=True)
+        sys.exit(0)
     for gan, seeds in (("lsgan", (3, 4)), ("hinge", (3, 4)), ("vanilla", (3, 4)),
                        ("vanilla", (3, 5))):
         print(json.dumps({"readings": _run_pair({"gan_loss": gan, "seeds": seeds},
