@@ -97,6 +97,13 @@ Phases, each printing one JSON line:
              720p through the CLI; save and load seconds.  The JAX
              package's Orbax checkpoints need JAX to write: their reader
              is held by the CPU tests (``"orbax": "cpu_tests_only"``).
+             ``causal`` (after ``interop``): the live mode,
+             ``temporal_center = temporal_window - 1``, with the main
+             path's weights: ``stabilize_frames`` of the 24-frame 720p
+             clip (both forward kernels launched), one f32 chunk against
+             the CPU's (``card_vs_cpu_f32``'s tolerances), ms per chunk
+             in turns with the centred chunk, the device time of each,
+             and frames/s.
 7. timing  - frames/s of ``stabilize_frames`` and ms per chunk (bf16,
              720p), with ``utils.device_time`` of the chunk and of one
              ``grid_sample_f32`` launch at (8,256,256,3); ms per
@@ -112,6 +119,16 @@ Phases, each printing one JSON line:
              never calls them), its time on a (1,8,8,3) frame
              (``floor_ms``: launch, ramp and tail) and on its random
              check grid (``random_grid_ms``).
+             ``recipe`` (after the train profile):
+             ``examples.train_rich_deepstab.run`` at the full model and
+             the recipe's hyperparameters, cut to 20 steps on 2 rich
+             pairs of 16 frames of 320x448 (log and hook every 10 steps,
+             a checkpoint at 20, 16 EVAL frames; the same 32-frame hook
+             clip): two finite
+             hook readings, ``best_step.json`` holding the larger, the
+             ``best`` export in a fresh ``Stabilizer`` scoring it again
+             (within 1e-6), ``EVAL[ema]`` and ``EVAL[best]`` finite,
+             every kernel launched; seconds and steps/s.
 8. parallel - ``parallel/`` (``parallel_nccl_world1``,
              ``parallel_gloo_world2``, then ``parallel`` with the phase's
              seconds): at world size 1 under NCCL in this process, the
@@ -133,8 +150,10 @@ Phases, each printing one JSON line:
 
 Then the ``kernels`` line (with the launches of each parallel path at
 world size 1: ``launches_dp_train``, ``launches_clip_sharded``,
-``launches_spatial``, and of the clip from the ``.pth``:
-``launches_interop``), the card's name and power limit from
+``launches_spatial``, of the clip from the ``.pth``:
+``launches_interop``, of the causal mode's first call:
+``launches_causal``, and of the recipe phase: ``launches_recipe``), the
+card's name and power limit from
 ``nvidia-smi``, and ``{"ok": true, "device": {...}}`` as the last line.
 Any failed check raises and exits non-zero.
 """
@@ -1034,6 +1053,167 @@ def parallel(torch, np, cfg, sd, clip, out, flows) -> dict:
     return {"dp_train": dp_launches, "clip_sharded": stab_launches, "spatial": sp_launches}
 
 
+def chunk_vs_cpu_f32(torch, np, cfg, sd, clip, n=2) -> dict:
+    """One f32 chunk of ``n`` windows of ``clip`` (TF32 off) through
+    ``Stabilizer(cfg)`` with weights ``sd`` on the card and on the CPU:
+    flows MSE and max |diff| <= 1e-3, frames +-1 code (checked)."""
+    from pwstablenet_tpu_torch.config import PipelineConfig
+    from pwstablenet_tpu_torch.pipeline import Stabilizer
+
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    chunk = clip[: n + cfg.temporal_window - 1]
+    gpu = Stabilizer(cfg32, PipelineConfig(batch_windows=n), state_dict=sd)
+    cpu = Stabilizer(cfg32, PipelineConfig(batch_windows=n), state_dict=sd, device="cpu")
+    g_out, g_flow = (t.cpu().numpy() for t in gpu._chunk_step(torch.from_numpy(chunk).cuda()))
+    t0 = time.perf_counter()
+    c_out, c_flow = (t.numpy() for t in cpu._chunk_step(torch.from_numpy(chunk)))
+    cpu_s = time.perf_counter() - t0
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    mse = float(np.mean((g_flow - c_flow) ** 2))
+    fdiff = float(np.abs(g_flow - c_flow).max())
+    code = int(np.abs(g_out.astype(np.int32) - c_out.astype(np.int32)).max())
+    check(mse <= 1e-3 and fdiff <= 1e-3, f"card vs CPU flows: mse {mse}, max {fdiff}")
+    check(code <= 1, f"card vs CPU frames: {code} codes")
+    return {"windows": n, "flow_mse": mse, "flow_max_abs_diff": fdiff,
+            "flow_abs_max": float(np.abs(c_flow).max()), "frame_max_code_diff": code,
+            "cpu_seconds": cpu_s}
+
+
+def causal(torch, np, st, sd, clip) -> dict:
+    """The causal (live) mode, ``temporal_center = temporal_window - 1``
+    (no future frame in a window), with the weights ``sd`` of the main
+    path's ``Stabilizer`` ``st``: ``stabilize_frames`` of the 24-frame
+    720p clip (both forward kernels launched), one f32 chunk against the
+    CPU's, ms per chunk (CUDA events, median of 10 warm chunks: the live
+    mode's latency floor) in turns with ``st``'s centred chunk, the
+    device time of each (``utils.device_time``) and frames/s (median of
+    3 warm calls).  Returns the kernel launches of the first call."""
+    from pwstablenet_tpu_torch.config import PipelineConfig
+    from pwstablenet_tpu_torch.kernels import grid_sample as K
+    from pwstablenet_tpu_torch.pipeline import Stabilizer
+    from pwstablenet_tpu_torch.utils import device_time
+
+    t_phase = time.perf_counter()
+    cfg = st.model_cfg
+    ccfg = dataclasses.replace(cfg, temporal_center=cfg.temporal_window - 1)
+    causal_st = Stabilizer(ccfg, PipelineConfig(batch_windows=8), state_dict=sd)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    out, flows = causal_st.stabilize_frames(clip)
+    launches = dict(K.LAUNCHES)
+    check(out.shape == clip.shape and out.dtype == np.uint8
+          and flows.shape == (len(clip), *cfg.model_resolution, 2)
+          and bool(np.isfinite(flows).all()), f"causal frames {out.shape}, flows {flows.shape}")
+    check(launches["grid_sample_f32"] > 0 and launches["grid_sample_packed_u8"] > 0
+          and launches["grid_sample_grad_f32"] == 0, f"causal kernel launches {launches}")
+    parity = chunk_vs_cpu_f32(torch, np, ccfg, sd, clip)
+    frames_dev = torch.from_numpy(clip[: 8 + cfg.temporal_window - 1]).cuda()
+    chunk_ms = {"causal": [], "centred": []}
+    for i in range(13):
+        for key, stab in (("causal", causal_st), ("centred", st)):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            stab._chunk_step(frames_dev)
+            b.record()
+            b.synchronize()
+            if i >= 3:
+                chunk_ms[key].append(a.elapsed_time(b))
+    run_ms = []
+    for i in range(4):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        causal_st.stabilize_frames(clip)
+        b.record()
+        b.synchronize()
+        if i >= 1:
+            run_ms.append(a.elapsed_time(b))
+    stab_ms = statistics.median(run_ms)
+    emit("causal", temporal_center=ccfg.temporal_center, frames=list(out.shape),
+         launches=launches, card_vs_cpu_f32=parity,
+         chunk_ms=statistics.median(chunk_ms["causal"]), chunk_ms_each=chunk_ms["causal"],
+         centred_chunk_ms_in_turns=statistics.median(chunk_ms["centred"]),
+         chunk_device_time_ms=device_time(causal_st._chunk_step, (frames_dev,)) * 1e3,
+         centred_chunk_device_time_ms=device_time(st._chunk_step, (frames_dev,)) * 1e3,
+         chunk_windows=8,
+         stabilize_frames_ms=stab_ms, frames_per_s=len(clip) / (stab_ms / 1e3),
+         compute_dtype=ccfg.compute_dtype, seconds=time.perf_counter() - t_phase,
+         nvidia_smi=nvidia_smi())
+    return launches
+
+
+# the recipe phase's cuts of train_rich_deepstab's settings (1000 steps,
+# 12 pairs of 80 frames, log every 50, hook every 250, checkpoint every
+# 500, a 48-frame EVAL clip): width, the hook clip and the
+# hyperparameters stay as they are.  16 frames a pair (the loader needs
+# 9 at temporal_window 7) and 16 EVAL frames, because the host renders
+# a rich 320x448 frame in about a second and the clips render beside
+# the tree: the 32-frame hook clip is then the longest
+RECIPE_STEPS, RECIPE_PAIRS = 20, 2
+RECIPE_CUTS = dict(frames=16, size=(320, 448), log_every=10, eval_every=10,
+                   checkpoint_every=20, eval_frames=16)
+# the hook and a fresh Stabilizer run the same weights on the same clip
+# and card, so the best export scores the recorded value again exactly
+# unless cuDNN picks another algorithm for the second Stabilizer
+BEST_RELOAD_TOL = 1e-6
+
+
+def recipe(torch, np) -> dict:
+    """``examples.train_rich_deepstab.run`` on the card at the full model
+    and the recipe's hyperparameters, cut to ``RECIPE_STEPS`` steps on
+    ``RECIPE_PAIRS`` pairs (``RECIPE_CUTS``); the same hook clip (32
+    rich frames of 320x448).  Checks: two finite hook readings,
+    ``best_step.json`` holding the larger, the ``best`` export in a fresh
+    ``Stabilizer`` scoring it again, ``EVAL[ema]`` and ``EVAL[best]``
+    finite, every kernel launched.  Returns the kernel launches."""
+    from pwstablenet_tpu_torch.config import ModelConfig, PipelineConfig
+    from pwstablenet_tpu_torch.eval import stability_score
+    from pwstablenet_tpu_torch.examples import train_rich_deepstab
+    from pwstablenet_tpu_torch.kernels import grid_sample as K
+    from pwstablenet_tpu_torch.pipeline import Stabilizer
+    from pwstablenet_tpu_torch.train import checkpoint as ckpt
+
+    with tempfile.TemporaryDirectory() as work:
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train_rich_deepstab.run(steps=RECIPE_STEPS, pairs=RECIPE_PAIRS, work_dir=work,
+                                      **RECIPE_CUTS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        sec_per_step = statistics.median(m["sec_per_step"] for m in res["log"])
+        hooks = [h["eval_stability"] for h in res["hooks"]]
+        check(len(hooks) == 2 and all(np.isfinite(v) for h in res["hooks"] for v in h.values()),
+              f"recipe hook readings {res['hooks']}")
+        best = res["best"]
+        check(best["value"] == max(hooks)
+              and best["step"] == res["hooks"][hooks.index(max(hooks))]["step"],
+              f"recipe best {best} of {res['hooks']}")
+        st = Stabilizer(ModelConfig(), PipelineConfig(batch_windows=8),
+                        state_dict=ckpt.load_generator_state_dict(res["checkpoint_dir"],
+                                                                  step="best"))
+        out, _ = st.stabilize_frames(res["hook_clip"])
+        again = stability_score(out.astype(np.float32) / 127.5 - 1.0)
+    reload_diff = abs(again - best["value"])
+    check(reload_diff <= BEST_RELOAD_TOL,
+          f"best export rescored {again} against {best['value']} ({reload_diff})")
+    check(all(np.isfinite(v) for rep in res["evals"].values() for v in rep.values()),
+          f"recipe evals {res['evals']}")
+    check(all(n > 0 for n in launches.values()), f"recipe kernel launches {launches}")
+    emit("recipe", steps=RECIPE_STEPS, pairs=RECIPE_PAIRS, cuts=RECIPE_CUTS,
+         seconds=seconds, seconds_by_part=res["seconds"],
+         sec_per_step=[m["sec_per_step"] for m in res["log"]],
+         sec_per_step_median=sec_per_step, steps_per_s=1.0 / sec_per_step,
+         hooks=res["hooks"], best=best, best_reload=again, best_reload_diff=reload_diff,
+         best_reload_tol=BEST_RELOAD_TOL, evals=res["evals"],
+         gt_stable_ceiling=res["gt_stable_ceiling"], launches=launches,
+         nvidia_smi=nvidia_smi())
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1156,6 +1336,12 @@ def main() -> int:
     u8_case("(2,1080,1920)", torch.randint(0, 256, (2, 1080, 1920, 3), dtype=torch.uint8,
                                            device="cuda", generator=gen),
             smooth_grid(torch, 2, 1080, 1920, 0.2, gen))
+    # the recipe phase's frames (320x448): a hook or EVAL chunk of 8
+    # windows and a short tail of 2
+    for n in (8, 2):
+        u8_case(f"({n},320,448)", torch.randint(0, 256, (n, 320, 448, 3), dtype=torch.uint8,
+                                                device="cuda", generator=gen),
+                smooth_grid(torch, n, 320, 448, 0.2, gen))
     for k in (1, 2, 3):
         view = torch.empty(u8[:2].numel() + k, dtype=torch.uint8, device="cuda")[k:]
         view = view.view(u8[:2].shape)
@@ -1257,29 +1443,8 @@ def main() -> int:
          launches=launches, flow_abs_max=flow_max, share_pixels_changed=changed)
 
     # one f32 chunk on the card and on the CPU, same weights, TF32 off
-    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     sd = {k: v.cpu() for k, v in st.model.state_dict().items()}
-    n = 2
-    chunk = clip[: n + cfg.temporal_window - 1]
-    gpu = Stabilizer(cfg32, PipelineConfig(batch_windows=n), state_dict=sd)
-    cpu = Stabilizer(cfg32, PipelineConfig(batch_windows=n), state_dict=sd, device="cpu")
-    g_out, g_flow = (t.cpu().numpy() for t in gpu._chunk_step(torch.from_numpy(chunk).cuda()))
-    t0 = time.perf_counter()
-    c_out, c_flow = (t.numpy() for t in cpu._chunk_step(torch.from_numpy(chunk)))
-    cpu_s = time.perf_counter() - t0
-    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-    mse = float(np.mean((g_flow - c_flow) ** 2))
-    fdiff = float(np.abs(g_flow - c_flow).max())
-    code = int(np.abs(g_out.astype(np.int32) - c_out.astype(np.int32)).max())
-    emit("card_vs_cpu_f32", windows=n, flow_mse=mse, flow_max_abs_diff=fdiff,
-         flow_abs_max=float(np.abs(c_flow).max()), frame_max_code_diff=code,
-         cpu_seconds=cpu_s)
-    check(mse <= 1e-3 and fdiff <= 1e-3, f"card vs CPU flows: mse {mse}, max {fdiff}")
-    check(code <= 1, f"card vs CPU frames: {code} codes")
-    del gpu, cpu
+    emit("card_vs_cpu_f32", **chunk_vs_cpu_f32(torch, np, cfg, sd, clip))
 
     # ---- 5. inference timings --------------------------------------
     frames_dev = torch.from_numpy(clip[: 8 + cfg.temporal_window - 1]).cuda()
@@ -1329,6 +1494,8 @@ def main() -> int:
     # ---- checkpoint interop ------------------------------------------
     with tempfile.TemporaryDirectory() as work:
         interop_launches = interop(torch, np, st, clip, out, flows, work)
+    # ---- the causal (live) mode --------------------------------------
+    causal_launches = causal(torch, np, st, sd, clip)
     del st
 
     # ---- 6. training path --------------------------------------------
@@ -1454,6 +1621,8 @@ def main() -> int:
         emit("train_profile", steps=3, **prof, trace_file_bytes=os.path.getsize(trace_path),
              trace_events=trace_events)
     del tstate, step_fn, dev_batch
+    # ---- the rich training recipe, cut -------------------------------
+    recipe_launches = recipe(torch, np)
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     # the inter-stage warp's data: identity plus a smooth flow
@@ -1533,6 +1702,8 @@ def main() -> int:
          "launches_train": train_launches["grid_sample_f32"],
          **{f"launches_{path}": n["grid_sample_f32"] for path, n in par.items()},
          "launches_interop": interop_launches["grid_sample_f32"],
+         "launches_causal": causal_launches["grid_sample_f32"],
+         "launches_recipe": recipe_launches["grid_sample_f32"],
          "max_abs_err": f32_err,
          "ms": k1["ms"], "kernel_ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": b1, "bound_by": by1, "library_ms": k1["library_ms"],
@@ -1547,6 +1718,8 @@ def main() -> int:
          "launches": launches["grid_sample_packed_u8"],
          **{f"launches_{path}": n["grid_sample_packed_u8"] for path, n in par.items()},
          "launches_interop": interop_launches["grid_sample_packed_u8"],
+         "launches_causal": causal_launches["grid_sample_packed_u8"],
+         "launches_recipe": recipe_launches["grid_sample_packed_u8"],
          "max_abs_err": u8_err,
          "ms": k2["ms"], "kernel_ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": b2, "bound_by": by2, "library_ms": k2["library_ms"],
@@ -1558,6 +1731,7 @@ def main() -> int:
          "launches": train_launches["grid_sample_grad_f32"],
          "launches_per_train_step": train_launches["grid_sample_grad_f32"] / train_steps,
          **{f"launches_{path}": n["grid_sample_grad_f32"] for path, n in par.items()},
+         "launches_recipe": recipe_launches["grid_sample_grad_f32"],
          "max_abs_err": grad_err,
          "ms": k3["ms"], "kernel_ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": b3, "bound_by": by3, "library_ms": k3["library_ms"],

@@ -20,4 +20,15 @@ Layout
 - ``parallel``  one process per GPU on ``torch.distributed``: the mesh,
                 data-parallel training, clip-sharded inference, the
                 row-sharded warp
+- ``examples``  the JAX package's training recipes, as ``run()``s
 """
+
+__version__ = "0.1.0"
+
+from pwstablenet_tpu_torch.config import (  # noqa: F401
+    DataConfig,
+    MeshConfig,
+    ModelConfig,
+    PipelineConfig,
+    TrainConfig,
+)

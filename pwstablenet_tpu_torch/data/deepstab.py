@@ -27,6 +27,7 @@ from __future__ import annotations
 import os
 import sys
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -264,8 +265,6 @@ def batch_iterator(
             while True:
                 yield stack([dataset.sample(rng) for _ in range(batch_size)])
         else:
-            from concurrent.futures import ThreadPoolExecutor
-
             with ThreadPoolExecutor(n_threads) as pool:
                 while True:
                     rngs = [
@@ -301,6 +300,10 @@ def write_synthetic_deepstab(
     ``pixel_loss_mode="mean_matched"``: plain L1 on exposure-stepped data
     teaches the model to explain brightness with geometry.  The draws
     always consume the stream, also for keys the caller set.
+
+    The pairs render and write on threads, one a core up to 8 (so at
+    most 8 pairs are in memory at once); the files do not depend on
+    their number.
     """
     from pwstablenet_tpu_torch.data.synthetic import RICH, synthetic_pair_clip
 
@@ -312,6 +315,7 @@ def write_synthetic_deepstab(
     rng = np.random.default_rng(seed)
     os.makedirs(os.path.join(root, "stable"), exist_ok=True)
     os.makedirs(os.path.join(root, "unstable"), exist_ok=True)
+    pairs = []
     for i in range(num_pairs):
         kw = dict(clip_kwargs)
         if curriculum:
@@ -326,6 +330,17 @@ def write_synthetic_deepstab(
         elif rich:
             kw.setdefault("shake_px", float(rng.uniform(3.0, 9.0)))
             kw.setdefault("pan_px", float(rng.uniform(0.3, 1.8)))
+        pairs.append((i, kw))
+
+    def write_pair(pair):
+        i, kw = pair
         s, u = synthetic_pair_clip(frames, height, width, seed=seed + i, **kw)
         video_io.write_video(os.path.join(root, "stable", f"{i:02d}.avi"), s, 30.0, "MJPG")
         video_io.write_video(os.path.join(root, "unstable", f"{i:02d}.avi"), u, 30.0, "MJPG")
+
+    # once its draws are made a pair depends on nothing else, and numpy
+    # releases the interpreter lock while it renders: the pairs render
+    # on threads, one a core this process may run on, at most 8
+    cores = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") else os.cpu_count()
+    with ThreadPoolExecutor(max(1, min(num_pairs, cores or 1, 8))) as pool:
+        list(pool.map(write_pair, pairs))

@@ -19,11 +19,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from pwstablenet_tpu_torch.kernels.grid_sample import (
-    grid_sample_f32,
-    grid_sample_grad_f32,
-    grid_sample_packed_u8,
-)
+# the module, not its names: kernels.grid_sample imports ops (its plain
+# versions), so when it is imported first it is not complete yet here
+from pwstablenet_tpu_torch.kernels import grid_sample as kernels
 from pwstablenet_tpu_torch.ops.pixels import from_unit, to_unit
 
 
@@ -87,15 +85,15 @@ def warp_image(
     if image.dtype == torch.uint8 and c == 3 and padding_mode in (
         "border", "reflection",
     ):
-        return grid_sample_packed_u8(
+        return kernels.grid_sample_packed_u8(
             image.contiguous(), grid, padding_mode, align_corners
         )
     if not image.dtype.is_floating_point:
-        out = grid_sample_f32(
+        out = kernels.grid_sample_f32(
             to_unit(image).contiguous(), grid, padding_mode, align_corners
         )
         return from_unit(out)
-    out = grid_sample_f32(
+    out = kernels.grid_sample_f32(
         image.to(torch.float32).contiguous(), grid, padding_mode, align_corners
     )
     return out.to(image.dtype)
@@ -110,14 +108,14 @@ class _FusedSample(torch.autograd.Function):
         ctx.save_for_backward(image, grid)
         ctx.padding_mode = padding_mode
         ctx.align_corners = align_corners
-        return grid_sample_f32(image, grid, padding_mode, align_corners)
+        return kernels.grid_sample_f32(image, grid, padding_mode, align_corners)
 
     @staticmethod
     def backward(ctx, grad_out):
         if not ctx.needs_input_grad[1]:
             return None, None, None, None
         image, grid = ctx.saved_tensors
-        dgrid = grid_sample_grad_f32(
+        dgrid = kernels.grid_sample_grad_f32(
             image, grid, grad_out.to(torch.float32).contiguous(),
             ctx.padding_mode, ctx.align_corners,
         )

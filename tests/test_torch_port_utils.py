@@ -4,7 +4,6 @@ on the CPU: the phase timer, the Chrome trace that ``trace`` writes, and
 
 import glob
 import json
-import time
 
 import pytest
 import torch
@@ -14,20 +13,32 @@ from pwstablenet_tpu.utils.profiling import wall_breakdown as jax_wall_breakdown
 from pwstablenet_tpu_torch.utils import device_time, scope, trace, wall_breakdown
 
 
-def test_wall_breakdown_adds_up_its_phases():
+def test_wall_breakdown_adds_up_its_phases(monkeypatch):
+    """Both packages' phase timers, on a scripted clock: each phase's
+    body advances the clock by its units, so the sums are exact and no
+    host load can reorder them."""
+    import types
+
+    import pwstablenet_tpu.utils.profiling as jax_profiling
+
+    import pwstablenet_tpu_torch.utils.profiling as port_profiling
+
+    now = [0.0]
+    clock = types.SimpleNamespace(perf_counter=lambda: now[0])
+    for module in (port_profiling, jax_profiling):
+        monkeypatch.setattr(module, "time", clock)
     wb, ref = wall_breakdown(), jax_wall_breakdown()
     for timer in (wb, ref):
-        for name in ("decode", "compute", "decode"):
+        for name, units in (("decode", 10.0), ("compute", 25.0), ("decode", 10.0)):
             with timer.phase(name):
-                time.sleep(0.01)
+                now[0] += units
     got = wb.as_dict()
-    assert set(got) == set(ref.as_dict()) == {"decode", "compute"}
-    assert got["decode"] >= 0.02 and got["compute"] >= 0.01
-    assert got["decode"] > got["compute"]
+    assert got == ref.as_dict() == {"decode": 20.0, "compute": 25.0}
     with pytest.raises(KeyError, match="inside"):
         with wb.phase("failing"):
+            now[0] += 5.0
             raise KeyError("inside")
-    assert "failing" in wb.as_dict()  # a phase that raised still counts
+    assert wb.as_dict()["failing"] == 5.0  # a phase that raised still counts
 
 
 def test_trace_writes_a_chrome_trace_with_the_scope(tmp_path):
