@@ -147,12 +147,21 @@ Phases, each printing one JSON line:
              warp, uint8 and f32 (atol 5e-5), border and reflection,
              against the unsharded kernels.  Gloo times on one card are
              not speed figures (``gloo_on_one_card``).
+9. bench   - the port's benchmark suite (``pwstablenet_tpu_torch.bench``,
+             the JAX package's ``bench.py`` at its shapes) through
+             ``cli.main(["bench"])`` in process, stdout captured: exit 0,
+             exactly one line, the JAX suite's metric, every key of
+             ``bench.KEYS_OF_JAX_SUITE`` present and finite, the four
+             parity gates inside their limits, a training mesh of 1,
+             every MFU in (0, 1] and every kernel launched; its seconds
+             and the headline.
 
 Then the ``kernels`` line (with the launches of each parallel path at
 world size 1: ``launches_dp_train``, ``launches_clip_sharded``,
 ``launches_spatial``, of the clip from the ``.pth``:
 ``launches_interop``, of the causal mode's first call:
-``launches_causal``, and of the recipe phase: ``launches_recipe``), the
+``launches_causal``, of the recipe phase: ``launches_recipe``, and of
+the benchmark suite: ``launches_bench``), the
 card's name and power limit from
 ``nvidia-smi``, and ``{"ok": true, "device": {...}}`` as the last line.
 Any failed check raises and exits non-zero.
@@ -1053,6 +1062,50 @@ def parallel(torch, np, cfg, sd, clip, out, flows) -> dict:
     return {"dp_train": dp_launches, "clip_sharded": stab_launches, "spatial": sp_launches}
 
 
+def bench_phase(torch) -> dict:
+    """The benchmark suite through ``cli.main(["bench"])`` in process, its
+    stdout captured: exit 0, one line, the JAX suite's metric, every key
+    of ``bench.KEYS_OF_JAX_SUITE`` present and finite, the gates inside
+    their limits, a training mesh of 1, every MFU in (0, 1] and every
+    kernel launched.  Returns the launches."""
+    import contextlib
+    import io
+
+    from pwstablenet_tpu_torch import bench
+    from pwstablenet_tpu_torch.cli.main import main as cli
+    from pwstablenet_tpu_torch.kernels import grid_sample as K
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    buf = io.StringIO()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(["bench"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    lines = buf.getvalue().strip().splitlines()
+    check(rc == 0 and len(lines) == 1, f"bench: rc {rc}, stdout {lines[-3:]}")
+    head = json.loads(lines[0])
+    detail = head.get("detail", {})
+    check(head.get("metric") == bench.METRIC and head.get("value", 0) > 0,
+          f"bench headline {head}")
+    bad = [k for k in bench.KEYS_OF_JAX_SUITE.values()
+           if not isinstance(detail.get(k), (int, float)) or not math.isfinite(detail[k])]
+    check(not bad, f"bench keys missing or not finite: {bad}")
+    mse = max(detail[k] for k in ("f32_kernel_vs_plain_mse", "grad_kernel_vs_plain_mse",
+                                  "f32_kernel_offlane_vs_plain_mse"))
+    check(mse <= bench.MSE_GATE and detail["packed_kernel_max_code_diff"] <= bench.CODE_GATE,
+          f"bench gates: MSE {mse}, codes {detail['packed_kernel_max_code_diff']}")
+    check(detail["train_mesh_devices"] == 1, f"bench mesh {detail['train_mesh_devices']}")
+    mfu = {k: detail[k] for k in ("mfu_720p", "mfu_generator", "train_mfu")}
+    check(all(0 < v <= 1 for v in mfu.values()), f"bench MFU {mfu}")
+    check(all(n > 0 for n in launches.values()), f"bench launches {launches}")
+    emit("bench", seconds=secs, headline=head, launches=launches)
+    return launches
+
+
 def chunk_vs_cpu_f32(torch, np, cfg, sd, clip, n=2) -> dict:
     """One f32 chunk of ``n`` windows of ``clip`` (TF32 off) through
     ``Stabilizer(cfg)`` with weights ``sd`` on the card and on the CPU:
@@ -1277,6 +1330,11 @@ def main() -> int:
                 out = K.grid_sample_f32(im, gr, mode, ac)
                 ref = K.grid_sample_f32_plain(im, gr, mode, ac)
                 f32_cases[key] = (out - ref).abs().max().item()
+    # the bench phase's causal chunk1 and chunk4 inter-stage warps
+    for n in (1, 4):
+        out = K.grid_sample_f32(img[:n], grid[:n])
+        ref = K.grid_sample_f32_plain(img[:n], grid[:n])
+        f32_cases[f"({n},256,256)"] = (out - ref).abs().max().item()
     tall = torch.rand(2, 720, 1280, 3, device="cuda", generator=gen)
     tgrid = smooth_grid(torch, 2, 720, 1280, 0.1, gen)
     rows = 300.0 / (0.5 * (720 - 1))          # 300 rows, normalized
@@ -1342,6 +1400,28 @@ def main() -> int:
         u8_case(f"({n},320,448)", torch.randint(0, 256, (n, 320, 448, 3), dtype=torch.uint8,
                                                 device="cuda", generator=gen),
                 smooth_grid(torch, n, 320, 448, 0.2, gen))
+    # the bench phase's 30-frame 480x832 clip: chunks of 8 windows, the
+    # last one padded to 8 by repeating its final frame
+    clip = torch.randint(0, 256, (8, 480, 832, 3), dtype=torch.uint8,
+                         device="cuda", generator=gen)
+    cgrid = smooth_grid(torch, 8, 480, 832, 0.2, gen)
+    u8_case("(8,480,832)", clip, cgrid)
+    u8_case("(8,480,832)/tail", torch.cat([clip[:6], clip[5:6].expand(2, -1, -1, -1)]),
+            torch.cat([cgrid[:6], cgrid[5:6].expand(2, -1, -1, -1)]))
+    del clip, cgrid
+    # the bench phase's 4K chunk of 16 windows: the kernel on the whole
+    # chunk, its plain version a few frames at a time (its int64 taps at
+    # 16 x 2160 x 3840 would take tens of GB)
+    uhd = torch.randint(0, 256, (16, 2160, 3840, 3), dtype=torch.uint8,
+                        device="cuda", generator=gen)
+    uhd_grid = smooth_grid(torch, 16, 2160, 3840, 0.2, gen)
+    out = K.grid_sample_packed_u8(uhd, uhd_grid)
+    d = torch.cat([(out[i:i + 4].int() - K.grid_sample_packed_u8_plain(
+        uhd[i:i + 4], uhd_grid[i:i + 4]).int()).abs() for i in range(0, 16, 4)])
+    u8_cases["(16,2160,3840)"] = {"max_code_diff": d.max().item(),
+                                  "share_differing": (d > 0).double().mean().item()}
+    del uhd, uhd_grid, out, d
+    torch.cuda.empty_cache()
     for k in (1, 2, 3):
         view = torch.empty(u8[:2].numel() + k, dtype=torch.uint8, device="cuda")[k:]
         view = view.view(u8[:2].shape)
@@ -1693,6 +1773,9 @@ def main() -> int:
     b3, by3 = bound(px3 * (8 + 3 * 4 + 3 * 4 + 8), px3 * (25 + 14 * 3))
     # ---- 8. parallel/ ------------------------------------------------
     par = parallel(torch, np, cfg, sd, clip, out, flows)
+    # ---- 9. the benchmark suite --------------------------------------
+    del flush
+    bench_launches = bench_phase(torch)
 
     kernels = [
         {"name": "grid_sample_f32", "route": "cuda",
@@ -1704,6 +1787,7 @@ def main() -> int:
          "launches_interop": interop_launches["grid_sample_f32"],
          "launches_causal": causal_launches["grid_sample_f32"],
          "launches_recipe": recipe_launches["grid_sample_f32"],
+         "launches_bench": bench_launches["grid_sample_f32"],
          "max_abs_err": f32_err,
          "ms": k1["ms"], "kernel_ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": b1, "bound_by": by1, "library_ms": k1["library_ms"],
@@ -1720,6 +1804,7 @@ def main() -> int:
          "launches_interop": interop_launches["grid_sample_packed_u8"],
          "launches_causal": causal_launches["grid_sample_packed_u8"],
          "launches_recipe": recipe_launches["grid_sample_packed_u8"],
+         "launches_bench": bench_launches["grid_sample_packed_u8"],
          "max_abs_err": u8_err,
          "ms": k2["ms"], "kernel_ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": b2, "bound_by": by2, "library_ms": k2["library_ms"],
@@ -1732,6 +1817,7 @@ def main() -> int:
          "launches_per_train_step": train_launches["grid_sample_grad_f32"] / train_steps,
          **{f"launches_{path}": n["grid_sample_grad_f32"] for path, n in par.items()},
          "launches_recipe": recipe_launches["grid_sample_grad_f32"],
+         "launches_bench": bench_launches["grid_sample_grad_f32"],
          "max_abs_err": grad_err,
          "ms": k3["ms"], "kernel_ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": b3, "bound_by": by3, "library_ms": k3["library_ms"],

@@ -21,6 +21,7 @@ Layout
                 data-parallel training, clip-sharded inference, the
                 row-sharded warp
 - ``examples``  the JAX package's training recipes, as ``run()``s
+- ``bench``     the JAX package's benchmark suite, measured on the card
 """
 
 __version__ = "0.1.0"

@@ -6,6 +6,7 @@ subcommands with the same flags, each printing one JSON line on stdout.
     python -m pwstablenet_tpu_torch.cli train --data-root DeepStab --steps 1000
     python -m pwstablenet_tpu_torch.cli train --synthetic --steps 1000
     python -m pwstablenet_tpu_torch.cli stabilize --synthetic --frames 24 --device cpu
+    python -m pwstablenet_tpu_torch.cli bench
     torchrun --standalone --nproc_per_node N -m pwstablenet_tpu_torch.cli train --synthetic
 
 Every command that runs a model runs on the card unless ``--device``
@@ -16,8 +17,8 @@ clip-sharded; only rank 0 prints and writes files.  ``--checkpoint``
 takes a reference ``.pth``/``.pt`` file, a port checkpoint directory or
 the JAX package's Orbax directory (an export or a training run's), and
 ``train --resume`` continues a JAX run's Orbax ``--checkpoint-dir``.
-``bench`` raises ``NotImplementedError`` naming its ``ROADMAP.md`` item:
-the port's benchmark is not written yet.
+``bench`` runs the benchmark suite (``pwstablenet_tpu_torch.bench``) on
+the card.
 """
 
 from __future__ import annotations
@@ -361,10 +362,9 @@ def cmd_make_data(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    raise NotImplementedError(
-        "bench: the port's benchmark is not written yet; it comes with the "
-        "benchmark PR that writes BENCHMARK.json (ROADMAP.md Queue 1, item 17)"
-    )
+    from pwstablenet_tpu_torch import bench
+
+    return bench.main()
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -491,7 +491,7 @@ def build_parser() -> argparse.ArgumentParser:
     aw.add_argument("--batch-frames", type=int, default=8)
     aw.set_defaults(fn=cmd_apply_warp)
 
-    b = sub.add_parser("bench", help="run the benchmark suite (not written yet)")
+    b = sub.add_parser("bench", help="run the benchmark suite")
     b.set_defaults(fn=cmd_bench)
 
     e = sub.add_parser("eval", help="stabilization quality metrics")

@@ -2,7 +2,8 @@
 (``--device cpu``), in process, at the TINY model sizes: every ported
 subcommand, its output line, its files, the data-parallel flags in a
 single process, checkpoints from the reference's ``.pth`` and the JAX
-package's Orbax directories, and the subcommand not written yet."""
+package's Orbax directories (``bench`` is
+``tests/test_torch_port_bench.py``'s)."""
 
 import dataclasses
 import glob
@@ -369,12 +370,3 @@ def test_commands_run_on_the_card_unless_asked(monkeypatch):
         main(["export", "--output", "unused.pt2", *MODEL])
 
 
-@pytest.mark.parametrize("argv, module", [
-    (["bench"], "BENCHMARK.json"),
-], ids=["bench"])
-def test_unported_flags_name_their_roadmap_item(argv, module):
-    if argv[0] in ("stabilize", "train"):
-        argv = [*argv, *MODEL, *CPU]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item") as info:
-        main(argv)
-    assert module in str(info.value)
