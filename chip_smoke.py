@@ -50,6 +50,17 @@ Phases, each printing one JSON line:
              Then one f32 step (TF32 off) at a tiny config on the card
              and on the CPU from one state and batch: metrics rtol 1e-4,
              parameters within 1e-6 on 99.9 %.
+             ``train_debug_nans`` (after the train timing):
+             ``train()`` with ``debug_nans``, ``log_every`` 5 and
+             ``checkpoint_every`` 1 on a float batch whose ``stable`` is
+             NaN at step 1: ``FloatingPointError`` at step 1 and no
+             checkpoint; then ms a full-width batch-8 step, each synced,
+             without and with the per-step check (median of 10 steps
+             each, 5 at a time in turns), the check alone after a step
+             (median of 7, ending in its own sync), its device busy
+             ms under ``torch.profiler`` and its bound (the bytes it
+             reads once over 3.35 TB/s), beside the card's name and
+             power limit.
 6. surface - the user-facing surface (run after the inference timings,
              before training), on the main path's Stabilizer and clip,
              each line with the kernel launches made during it:
@@ -701,6 +712,82 @@ def train_deepstab(torch, np, cfg, tcfg, before, steps, synthetic) -> None:
          pinned_h2d_ms=statistics.median(h2d_ms), pinned_h2d_ms_each=h2d_ms,
          resize_scale_range=list(data_cfg.resize_scale_range),
          decode_threads=data_cfg.num_decode_threads, first=logged[0], last=logged[-1])
+
+
+def train_debug_nans(torch, np, cfg, tcfg, step_fn, dev_batch, state) -> None:
+    """``debug_nans`` on the card: ``train()`` of the full model on a
+    float batch whose ``stable`` is NaN at step 1, then finite ones, with
+    ``log_every`` 5 and ``checkpoint_every`` 1, must raise
+    ``FloatingPointError`` at step 1 and leave no checkpoint.  Then ms a
+    step (batch 8, each step synced) without and with the per-step check,
+    5 steps at a time in turns, median of 10 each; the check alone after
+    a step; its device busy time, and its bound: the bytes it reads once
+    over the card's memory rate."""
+    from pwstablenet_tpu_torch.data.synthetic import make_train_batch
+    from pwstablenet_tpu_torch.train import checkpoint as ckpt
+    from pwstablenet_tpu_torch.train import loop
+
+    h, w = cfg.model_resolution
+    batches = [make_train_batch(tcfg.batch_size, h, w, cfg.temporal_window,
+                                seed=SEED + 20 + i, dtype=np.float32) for i in range(3)]
+    batches[0]["stable"][:] = np.nan
+    raised = None
+    with tempfile.TemporaryDirectory() as work:
+        ckpt_dir = os.path.join(work, "ckpt")
+        ncfg = dataclasses.replace(tcfg, log_every=5, checkpoint_every=1, debug_nans=True,
+                                   checkpoint_dir=ckpt_dir)
+        t0 = time.perf_counter()
+        try:
+            loop.train(cfg, ncfg, iter(batches), max_steps=3, log_fn=lambda m: None)
+        except FloatingPointError as e:
+            raised = str(e)
+        raise_s = time.perf_counter() - t0
+        left = sorted(os.listdir(ckpt_dir)) if os.path.isdir(ckpt_dir) else []
+        latest = ckpt.latest_step(ckpt_dir)
+    check(raised is not None and raised.startswith("non-finite metrics at step 1 "),
+          f"debug_nans on the card: {raised!r}")
+    check(left == [] and latest is None, f"debug_nans left checkpoints: {left}")
+
+    def steps(checked):
+        ms = []
+        for i in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = step_fn(state, dev_batch)
+            if checked:
+                loop._check_finite(state, m, i + 1)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return ms
+
+    steps(True)  # warm the check's kernels
+    runs = {"off": [], "on": []}
+    for flag in ("off", "on", "on", "off"):
+        runs[flag] += steps(flag == "on")
+    off, on = statistics.median(runs["off"]), statistics.median(runs["on"])
+    # the check alone after a step: it ends in its own sync
+    m = step_fn(state, dev_batch)
+    alone = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loop._check_finite(state, m, 0)
+        alone.append((time.perf_counter() - t) * 1e3)
+    prof = profile_device(torch, lambda: loop._check_finite(state, m, 0))
+    # what the check must read once: every tensor it reduces
+    checked = list(m.values()) + list(state.g.parameters()) + list(state.d.parameters())
+    checked += [t for o in (state.g_opt, state.d_opt) for s in o.state.values()
+                for k, t in s.items() if k.startswith("exp_avg")]
+    if state.g_ema is not None:
+        checked += list(state.g_ema.parameters())
+    check_bytes = sum(t.numel() * t.element_size() for t in checked)
+    emit("train_debug_nans", raised=raised[:120], raise_seconds=raise_s, checkpoints_left=left,
+         batch_size=tcfg.batch_size, step_ms_off=off, step_ms_on=on, step_ms_diff=on - off,
+         step_ms_off_each=runs["off"], step_ms_on_each=runs["on"],
+         check_alone_ms=statistics.median(alone), check_alone_ms_each=alone,
+         check_device_busy_ms=prof["device_busy_ms"], check_top_device_ms=prof["top_device_ms"],
+         check_bytes=check_bytes, check_bound_ms=check_bytes / HBM_BYTES_PER_S * 1e3,
+         card=nvidia_smi())
 
 
 def adam_step_bound(t, b1=0.5, b2=0.999):
@@ -1691,6 +1778,7 @@ def main() -> int:
          windows_per_step=windows, windows_per_s=windows * 1e3 / med,
          peak_memory_gb=peak / 1e9, compute_dtype=cfg.compute_dtype,
          model_resolution=list(cfg.model_resolution))
+    train_debug_nans(torch, np, cfg, tcfg, step_fn, dev_batch, tstate)
     with tempfile.TemporaryDirectory() as trace_dir:
         prof = profile_device(torch, lambda: [step_fn(tstate, dev_batch) for _ in range(3)],
                               trace_dir=trace_dir)

@@ -460,7 +460,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cap the data-parallel mesh size (-1 = all "
                         "processes whose count divides the batch)")
     t.add_argument("--checkpoint-every", type=int, default=500)
-    t.add_argument("--debug-nans", action="store_true")
+    t.add_argument("--debug-nans", action="store_true",
+                   help="after every step, check the metrics, G's and D's "
+                        "parameters, their Adam moments and the EMA on the "
+                        "card, and stop with FloatingPointError at the first "
+                        "step that makes a NaN or inf, before it is logged "
+                        "or checkpointed (one host sync a step)")
     t.add_argument("--fault-inject-step", type=int, default=-1)
     t.add_argument("--seed", type=int, default=0)
     t.set_defaults(fn=cmd_train)

@@ -5,14 +5,21 @@ The device does the math (``train.step``); the host feeds batches, logs
 metrics and saves checkpoints.  Batches cross host->device as uint8
 from pinned memory with ``non_blocking`` copies, and batch N+1 is
 prepared while the card runs step N: nothing in the loop waits on the
-card except the metrics fetch at ``log_every``.  Supports:
+card except the metrics fetch at ``log_every`` (and, under
+``debug_nans``, the check after every step).  Supports:
 
 - data-parallel execution over a mesh (``parallel.data_parallel_step``);
 - resume from the newest checkpoint (``resume=True``);
 - JSONL metrics to stdout, and to ``scalar_log_path`` when set;
 - TensorBoard event files in ``tb_log_dir`` when set
   (``utils.tb_writer``, no TensorBoard package needed);
-- ``debug_nans``: non-finite metrics raise at log time;
+- ``debug_nans``: after every step, before its logs, eval or
+  checkpoint, one reduction on the card over the step's metrics, G's and
+  D's parameters, their Adam moments and the EMA, and one host sync;
+  a non-finite value raises ``FloatingPointError`` naming the step and
+  where it is, as ``jax_debug_nans`` stops the JAX package's step that
+  makes a NaN (and, on every rank of a data-parallel mesh, since the
+  gradients are all-reduced);
 - fault injection for resume testing (``fault_inject_step``);
 - an optional eval hook with best-step tracking.
 
@@ -65,6 +72,32 @@ def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[
             t = t.pin_memory().to(device, non_blocking=True)
         out[k] = t
     return out
+
+
+def _check_finite(state: TrainState, metrics: Dict[str, torch.Tensor], step: int) -> None:
+    """Raise ``FloatingPointError`` if the step's metrics, G's or D's
+    parameters, their Adam moments or the EMA hold a non-finite value:
+    one ``torch._foreach_norm`` per group, reduced on the device and
+    fetched in one sync."""
+    groups = {
+        "metrics": list(metrics.values()),
+        "G's parameters": list(state.g.parameters()),
+        "D's parameters": list(state.d.parameters()),
+        "G's Adam moments": [t for s in state.g_opt.state.values()
+                             for k, t in s.items() if k.startswith("exp_avg")],
+        "D's Adam moments": [t for s in state.d_opt.state.values()
+                             for k, t in s.items() if k.startswith("exp_avg")],
+        "the EMA": list(state.g_ema.parameters()) if state.g_ema is not None else [],
+    }
+    groups = {k: v for k, v in groups.items() if v}
+    norms = torch.stack([torch.stack(torch._foreach_norm(v)).amax() for v in groups.values()])
+    bad = [name for name, ok in zip(groups, torch.isfinite(norms).tolist()) if not ok]
+    if bad:
+        what = "metrics" if bad[0] == "metrics" else "state"
+        scalars = {k: float(v) for k, v in metrics.items()}
+        raise FloatingPointError(
+            f"non-finite {what} at step {step} (non-finite: {', '.join(bad)}): {scalars}"
+        )
 
 
 def train(
@@ -162,6 +195,8 @@ def _run_loop(state, step_fn, batch_iterator, device, mesh, train_cfg, total, lo
         step += 1
         if step < total:
             next_batch = batch_to_device(shard_batch(next(batch_iterator), mesh), device)
+        if train_cfg.debug_nans:
+            _check_finite(state, metrics, step)
 
         if train_cfg.fault_inject_step == step:
             if device.type == "cuda":

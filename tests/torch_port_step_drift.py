@@ -1,10 +1,12 @@
 """Why the train-step parity test syncs the whole state between steps,
-and why the vanilla GAN loss's second step is compared on batch 5, not 4
-(a diagnostic, not a test; prints JSON lines).
+why its lsgan cases run through ``Kinks``, and why the vanilla GAN
+loss's second step is compared on batch 5, not 4 (a diagnostic, not a
+test; prints JSON lines).
 
-    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_step_drift.py [carry]
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_step_drift.py [carry | gradient_raw]
 
-With ``carry`` it prints only the ``carry`` readings.
+With ``carry`` or ``gradient_raw`` it prints only those readings (the
+default prints the others, then ``gradient_raw``; about 4 min in all).
 
 1. ``readings``: the parity test's per-step readings (share of G's and
    D's elements within 1e-6 of JAX's, max |diff| / lr) for each GAN loss
@@ -27,9 +29,28 @@ With ``carry`` it prints only the ``carry`` readings.
    within rounding of 0 may land up to 2 lr apart at step 1 on some
    hosts; left unsynced, such elements carry the two sides into step 2
    from different states.
+4. ``gradient_raw``: the ``gradient`` pixel loss with the raw temporal
+   loss, second step (batch 4) from ONE state, both steps recorded
+   through the parity test's ``Kinks``.  ``kinks``: for each kind (the
+   G loss's ``abs`` calls, named by stage and term; the ReLU and leaky
+   ReLU calls of G, D and the feature extractor, by call), the port's
+   elements whose backward takes another branch than JAX's, counted
+   where the port's argument is exactly 0 (``torch.abs`` takes 0 there,
+   ``jnp.abs`` +1) and listed off 0 with both arguments, and the calls
+   with port arguments within 1e-6 of the kink; ``grid_cells_differ``:
+   per warp and axis, the sample coordinates in another cell of the
+   sampler than JAX's or on a clamp end.  Then ``grad_norm_g`` against
+   JAX's and G's share of free elements within 1e-6 and max |diff| / lr
+   after the update, for the port's step as computed
+   (``as_computed``), with every ``abs`` on JAX's side
+   (``abs_on_jax_side``), with every kink on JAX's side
+   (``all_on_jax_side``) and as the test runs it (``as_tested``: JAX's
+   side within 1e-5 of a kink); ``moved`` counts the elements each
+   variant put on JAX's side.
 """
 
 import json
+import math
 
 import jax
 import jax.numpy as jnp
@@ -49,8 +70,8 @@ from pwstablenet_tpu_torch.train import losses as port_losses
 import sys
 
 from test_torch_port_train import (
-    CASES, CPU, TCFG, TINY, _pair, _param_diffs, _run_pair, _sync_from_jax,
-    batch_to_device, feeds_a_norm, make_train_batch,
+    CASES, CPU, KINDS, TCFG, TINY, Kinks, _branch, _pair, _param_diffs, _run_pair,
+    _sync_from_jax, batch_to_device, feeds_a_norm, make_train_batch,
 )
 
 
@@ -157,7 +178,77 @@ def carry(train_over):
     return out
 
 
+# the G loss's abs calls of one stage, in order (gradient pixel loss,
+# two feature scales, raw temporal loss, warp smoothness)
+ABS_CALLS = ("pixel dy", "pixel dx", "feature 0", "feature 1", "temporal",
+             "warp_reg dy", "warp_reg dx")
+
+
+def _kink_sides(kind, seen, near=1e-6):
+    """Over the recorded calls of ``kind``: the port's elements whose
+    backward takes another branch than JAX's, exactly at 0 (a count) and
+    off it (each, with the two arguments), and the port's arguments
+    within ``near`` of the kink but not on it."""
+    out = {"calls": len(seen), "elements": 0, "differ_at_zero": 0,
+           "differ_off_zero": [], "near": []}
+    for i, (x, ref) in enumerate(seen):
+        label = f"stage{i // 7} {ABS_CALLS[i % 7]}" if kind == "abs" else i
+        differ = _branch(kind, x, 0.2, False) != _branch(kind, ref, 0.2, True)
+        off = differ & (x != 0)
+        out["elements"] += x.numel()
+        out["differ_at_zero"] += int((differ & (x == 0)).sum())
+        if off.any():
+            out["differ_off_zero"].append({"call": label, "port": x[off].tolist(),
+                                           "jax": ref[off].tolist()})
+        n = int(((x.abs() < near) & (x != 0)).sum())
+        if n:
+            out["near"].append({"call": label, "n": n})
+    return out
+
+
+def gradient_raw(seeds=(3, 4)):
+    """The ``gradient``/``raw`` second step from ONE state, as the JAX
+    step and the port's compute it, through ``Kinks``."""
+    over = {**TCFG, "pixel_loss_mode": "gradient", "temporal_mode": "raw"}
+    b1, b2 = [make_train_batch(2, 32, 32, TINY["temporal_window"], seed=s) for s in seeds]
+    lr = over["lr_g"]
+    out = {"seeds": list(seeds)}
+    recorded = None
+    variants = {"as_computed": dict(follow=(), strict=False),
+                "abs_on_jax_side": dict(follow=("abs",), margin=math.inf, strict=False),
+                "all_on_jax_side": dict(margin=math.inf, strict=False),
+                "as_tested": {}}
+    for name, kw in variants.items():
+        jstep, jstate, step, state = _pair(TINY, over)
+        jstate, _ = jstep(jstate, jax.tree_util.tree_map(jnp.asarray, b1))
+        step(state, batch_to_device(b1, CPU))
+        _sync_from_jax(state, jstate, full=True)
+        taps = Kinks(**kw)
+        if recorded is None:  # a step not yet traced, traced through the taps
+            fresh = _pair(TINY, over)[0]
+            with taps.jax():
+                recorded = fresh(jstate, jax.tree_util.tree_map(jnp.asarray, b2)), taps.values
+        (jstate, jm), taps.values = recorded
+        with taps.port():
+            m = step(state, batch_to_device(b2, CPU))
+        diff, free = _param_diffs(state.g, jstate.g_params)
+        out[name] = {"grad_norm_g": float(m["grad_norm_g"]),
+                     "jax_grad_norm_g": float(jm["grad_norm_g"]),
+                     "rel": abs(float(m["grad_norm_g"]) / float(jm["grad_norm_g"]) - 1),
+                     "G_share_within_1e-6": float((free <= 1e-6).double().mean()),
+                     "G_free_max_diff_over_lr": float(free.max()) / lr,
+                     "G_max_diff_over_lr": float(diff.max()) / lr,
+                     "moved": taps.moved}
+        if name == "as_computed":
+            out["kinks"] = {kind: _kink_sides(kind, taps.seen[kind]) for kind in KINDS}
+            out["grid_cells_differ"] = taps.seen["grid"]
+    return out
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["gradient_raw"]:
+        print(json.dumps({"gradient_raw": gradient_raw()}), flush=True)
+        sys.exit(0)
     if sys.argv[1:] == ["carry"]:
         for case in CASES:
             print(json.dumps({"carry": carry(case)}), flush=True)
@@ -168,3 +259,4 @@ if __name__ == "__main__":
                                                 check=False),
                           "gan_loss": gan, "seeds": list(seeds)}), flush=True)
     print(json.dumps({"kink": kink()}), flush=True)
+    print(json.dumps({"gradient_raw": gradient_raw()}), flush=True)
