@@ -4,7 +4,8 @@ the reference's ``.pth`` layout in and out (``interop.torch_import``,
 extractor, and the JAX package's Orbax checkpoints read without JAX
 (``interop.from_orbax``).  Flows are held to the generator tolerances of
 ``tests/test_torch_port_models.py`` (warp-map MSE <= 1e-3, atol 5e-4),
-a resumed train step to ``tests/test_torch_port_train.py``'s."""
+a resumed train step to ``tests/test_torch_port_train.py``'s, through
+its ``Kinks``."""
 
 import dataclasses
 import json
@@ -45,11 +46,11 @@ from pwstablenet_tpu_torch.interop.from_jax import (
 from pwstablenet_tpu_torch.models.features import FeatureExtractor
 from pwstablenet_tpu_torch.models.generator import CascadedGenerator
 from pwstablenet_tpu_torch.train import checkpoint as ckpt
-from pwstablenet_tpu_torch.train.loop import batch_to_device
 from pwstablenet_tpu_torch.train.state import create_train_state
 
 from test_torch_port_models import random_jax_params
-from test_torch_port_train import CPU, TCFG, TINY, _assert_params_close, _pair
+from test_torch_port_train import CPU, TCFG, TINY, _assert_step_close, _pair, _step_both
+from torch_port_kinks import Kinks
 
 SMALL = dict(temporal_window=3, num_levels=4, base_features=8, max_features=16,
              model_resolution=(32, 32), compute_dtype="float32")
@@ -307,11 +308,14 @@ def test_restore_from_orbax_resumes_like_jax(tmp_path, ema):
     """A JAX state after one step, its Adam counts moved into the
     learning-rate decay (count 6 of 10, decay from 5), saved by the JAX
     package; the JAX step from its restore against the port's step from
-    ``restore_state``, on one batch."""
+    ``restore_state``, on one batch, through ``Kinks`` (both JAX steps
+    run under it, so that the step is traced with its taps)."""
     over = {**TCFG, "ema_decay": ema}
     jstep, jstate, step, _ = _pair(TINY, over)
+    taps = Kinks(TINY.get("align_corners", True), stages=TINY["num_stages"])
     batch = make_train_batch(2, 32, 32, TINY["temporal_window"], seed=3)
-    jstate, _ = jstep(jstate, jax.tree_util.tree_map(jnp.asarray, batch))
+    with taps.jax():
+        jstate, _ = jstep(jstate, jax.tree_util.tree_map(jnp.asarray, batch))
 
     def recount(opt):
         adam, sched = opt
@@ -334,18 +338,10 @@ def test_restore_from_orbax_resumes_like_jax(tmp_path, ema):
         assert all(torch.equal(v, ref[k]) for k, v in module.state_dict().items())
 
     nxt = make_train_batch(2, 32, 32, TINY["temporal_window"], seed=4)
-    jstate, jm = jstep(jstate, jax.tree_util.tree_map(jnp.asarray, nxt))
-    m = step(state, batch_to_device(nxt, CPU))
-    assert set(m) == set(jm)
-    for k in jm:
-        np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-4, err_msg=k)
+    jstate, jm, m = _step_both(taps, jstep, jstate, step, state, nxt)
     assert state.step == int(jstate.step) == 7
-    lr = over["lr_g"]
-    _assert_params_close(state.g, jstate.g_params, lr, 2, "G")
-    _assert_params_close(state.d, jstate.d_params, lr, 2, "D")
-    _assert_params_close(state.feat, jstate.feat_params, 0.0, 2, "feat")
-    if ema:
-        _assert_params_close(state.g_ema, jstate.g_ema, lr, 2, "EMA")
+    assert (state.g_ema is None) == (jstate.g_ema is None) == (not ema)
+    _assert_step_close(m, jm, state, jstate, over["lr_g"], 2)
 
 
 def test_restore_from_orbax_reconciles_the_ema(tmp_path, capsys):

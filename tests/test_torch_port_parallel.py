@@ -9,8 +9,10 @@ cross with ``interop.from_jax``.  Each case is its own test:
 
 - the data-parallel train step, two steps, against the JAX
   ``data_parallel_step``, at ``tests/test_torch_port_train.py``'s
-  tolerances (with its norm-fed conv biases set to the JAX values after
-  the first step);
+  tolerances, with the whole state (parameters, Adam's moments, the EMA
+  if on) set to the JAX step's after the first step, so that both ranks
+  start the second from JAX's state (the ranks' steps do not run
+  through that file's ``Kinks``: they run in subprocesses without JAX);
 - ``grad_accum_steps=2`` under data parallelism against the plain
   data-parallel step (micro-batches inside each rank's shard), at the
   reference's tolerances (``tests/test_parallel.py``);
@@ -68,7 +70,6 @@ from pwstablenet_tpu_torch.models.discriminator import PatchDiscriminator
 from pwstablenet_tpu_torch.models.features import FeatureExtractor
 from pwstablenet_tpu_torch.models.generator import CascadedGenerator
 from pwstablenet_tpu_torch.parallel import maybe_initialize_distributed, process_info
-from pwstablenet_tpu_torch.train.state import feeds_a_norm
 
 import torch_port_parallel_worker as W
 from test_torch_port_pipeline import _assert_close, _random_params
@@ -145,7 +146,9 @@ def _inputs():
 
 def _jax_dp_steps(jx, work):
     """Two JAX data-parallel steps on the ranks' batches; after the first,
-    its norm-fed conv biases go to ``work/jax_sync.npz`` for the ranks."""
+    its whole state (every parameter of G and D, Adam's ``mu`` and
+    ``nu``, the EMA if it is on) goes to ``work/jax_sync.npz``, from
+    which both ranks start their second step."""
     jcfg, jtcfg, jstate, (gen, disc, feat) = jx
     mesh = _jax_mesh()
     step = jax_data_parallel_step(jax_make_train_step(jcfg, jtcfg, gen, disc, feat), mesh)
@@ -159,10 +162,12 @@ def _jax_dp_steps(jx, work):
         out.append(({k: float(v) for k, v in metrics.items()}, host))
         if n == 1:
             sync = {}
-            for prefix, params in (("g.", host.g_params), ("d.", host.d_params)):
-                sd = tree_to_state_dict(params)
-                sync.update({prefix + k: v.numpy() for k, v in sd.items()
-                             if feeds_a_norm(k, sd)})
+            for what, params, opt in (("g", host.g_params, host.g_opt),
+                                      ("d", host.d_params, host.d_opt)):
+                for part, tree in (("", params), ("_mu", opt[0].mu), ("_nu", opt[0].nu)):
+                    sync.update(_flat(f"{what}{part}.", tree_to_state_dict(tree)))
+            if host.g_ema is not None:
+                sync.update(_flat("ema.", tree_to_state_dict(host.g_ema)))
             tmp = os.path.join(work, "jax_sync.tmp.npz")
             np.savez(tmp, **sync)
             os.replace(tmp, os.path.join(work, "jax_sync.npz"))

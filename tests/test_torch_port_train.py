@@ -26,31 +26,29 @@ also land up to 2 lr apart at step 1, depending on the host's rounding
 1.0 (``tests/torch_port_step_drift.py carry``).
 
 The tolerance also needs every argument of a kink (``abs`` in the
-losses, a ReLU or leaky-ReLU input, a sample coordinate of a warp) to
-lie on the same side of it in both packages.  An argument within
-rounding of the kink falls on either side depending on the host, and
-moves G's or D's gradient by a whole branch.  With the gradient pixel
-loss and the raw temporal loss, batch 4 puts one argument of stage 1's
-``abs(dy)`` at +7.45e-8 in the port and -5.96e-8 in JAX on one host:
-``grad_norm_g`` then differs by 2.3e-4 relative and only 0.875 of G's
-elements lie within 1e-6; with that element on JAX's side, 2.1e-7 and
-1.0 (``tests/torch_port_step_drift.py gradient_raw``).  So the lsgan
-cases without accumulation run their steps through ``Kinks``: the port
-takes JAX's branch at every argument within 1e-5 of a kink, and the
-test fails before it compares if an argument farther away, or a sample
-coordinate, lies on another side than JAX's.  With the vanilla GAN
-loss, which ``Kinks`` does not cover, batch 4 puts one of D's
-leaky-ReLU inputs at -5.83e-7 in JAX and +5.84e-7 in the port, so its
-slope differs (1 vs 0.2) and D's weight gradient by 1.2 % of its
-largest element (1.8e-6 with that element on JAX's side); that case's
-second step runs on batch 5 (``tests/torch_port_step_drift.py``)."""
+losses, the vanilla BCE's ``maximum(x, 0)``, a ReLU or leaky-ReLU input,
+a sample coordinate of a warp) to lie on the same side of it in both
+packages.  An argument within rounding of the kink falls on either side
+depending on the host, and moves G's or D's gradient by a whole branch.
+With the gradient pixel loss and the raw temporal loss, batch 4 puts one
+argument of stage 1's ``abs(dy)`` at +7.45e-8 in the port and -5.96e-8
+in JAX on one host: ``grad_norm_g`` then differs by 2.3e-4 relative and
+only 0.875 of G's elements lie within 1e-6; with that element on JAX's
+side, 2.1e-7 and 1.0 (``tests/torch_port_step_drift.py gradient_raw``).
+With the vanilla GAN loss, batch 4 puts one of D's leaky-ReLU inputs at
+-5.83e-7 in JAX and +5.84e-7 in the port, so its slope differs (1 vs
+0.2).  So every case runs its steps through ``Kinks``
+(``tests/torch_port_kinks.py``), on the same batches: the port takes
+JAX's branch at every argument within 1e-5 of a kink, and the test
+fails before it compares if an argument farther away, or a sample
+coordinate, lies on another side than JAX's, or if the port's step
+calls a kink's function, or the sampler, another number of times than
+JAX's.  ``tests/torch_port_step_drift.py`` prints how many arguments
+each case moves to JAX's branch."""
 
-import contextlib
 import dataclasses
 import json
 import os
-import sys
-import types
 
 import numpy as np
 import pytest
@@ -62,8 +60,6 @@ import torch.nn.functional as F
 
 from pwstablenet_tpu.config import ModelConfig as JaxModelConfig
 from pwstablenet_tpu.config import TrainConfig as JaxTrainConfig
-from pwstablenet_tpu.models import CascadedGenerator as JaxCascadedGenerator
-from pwstablenet_tpu.ops import warp as jax_warp
 from pwstablenet_tpu.train import create_train_state as jax_create_train_state
 from pwstablenet_tpu.train import losses as jax_losses
 from pwstablenet_tpu.train import make_train_step as jax_make_train_step
@@ -77,8 +73,6 @@ from pwstablenet_tpu_torch.interop.from_jax import (
 from pwstablenet_tpu_torch.models.discriminator import PatchDiscriminator
 from pwstablenet_tpu_torch.models.features import FeatureExtractor
 from pwstablenet_tpu_torch.models.generator import CascadedGenerator
-from pwstablenet_tpu_torch.ops import warp as port_warp
-from pwstablenet_tpu_torch.ops.grid_sample import _unnormalize
 from pwstablenet_tpu_torch.train import checkpoint as ckpt
 from pwstablenet_tpu_torch.train import losses as port_losses
 from pwstablenet_tpu_torch.train.loop import (
@@ -93,6 +87,8 @@ from pwstablenet_tpu_torch.train.state import (
     make_train_state,
 )
 from pwstablenet_tpu_torch.train.step import make_train_step
+
+from torch_port_kinks import KINDS, Kinks, _branch
 
 # the TINY config of tests/test_train_step.py
 TINY = dict(
@@ -188,215 +184,59 @@ def _sync_from_jax(state, jstate, full=False):
     if full and state.g_ema is not None:
         state.g_ema.load_state_dict(tree_to_state_dict(jax.device_get(jstate.g_ema)))
 
-# ------------------------------------------------------------ kinks --
-
-KINK_MARGIN = 1e-5
-KINDS = ("abs", "relu", "leaky_relu")
-# the JAX step's sampler calls that match the port's four, in order: the
-# inter-stage warp, the D update's, the two loss warps (the JAX step's D
-# update warps every stage and keeps the last: its call 1 has no match)
-GRID_CALLS = (0, 2, 3, 4)
+SEEDS = (3, 4)  # the batches of the two compared steps
 
 
-class _View(types.ModuleType):
-    """``base`` with some of its names replaced."""
-
-    def __init__(self, base, **names):
-        super().__init__(base.__name__)
-        self._base = base
-        self.__dict__.update(names)
-
-    def __getattr__(self, name):
-        return getattr(self._base, name)
-
-
-def _branch(kind, x, slope, jax_side):
-    """The factor that the backward of ``kind`` takes at each element of
-    ``x``: ``jax.grad``'s (``jnp.abs``: +1 at 0; flax's leaky ReLU: 1 at
-    0) or torch's (``abs``: ``sign``, 0 at 0; ``leaky_relu``: the slope
-    at 0).  Both ReLUs take 0 at 0."""
-    one = torch.ones_like(x)
-    if kind == "abs":
-        return torch.where(x >= 0, one, -one) if jax_side else torch.sign(x)
-    if kind == "relu":
-        return (x > 0).to(x.dtype)
-    return torch.where(x >= 0 if jax_side else x > 0, one, slope * one)
+def _step_both(taps, jstep, jstate, step, state, batch):
+    """The JAX step and the port's on ``batch``, through ``taps`` (trace
+    and run ``jstep`` under one ``Kinks``: it records into the one it was
+    traced under)."""
+    with taps.jax():
+        jstate, jm = jstep(jstate, jax.tree_util.tree_map(jnp.asarray, batch))
+    with taps.port():
+        m = step(state, batch_to_device(batch, CPU))
+    taps.assert_all_matched()
+    return jstate, jm, m
 
 
-class Kinks:
-    """The points where the train step is not differentiable, in both
-    packages: ``abs`` in the losses, the ReLUs and leaky ReLUs of G, D
-    and the feature extractor, and the cells of the warps' bilinear
-    sampler.  An argument within rounding of one of them may fall on
-    one side in JAX and on the other in the port, depending on the host;
-    each such element moves G's gradient by a whole branch.
-
-    ``jax()`` swaps JAX's functions while its step is traced: each
-    records its argument, and the sampler its grid, through
-    ``jax.debug.callback`` every time the step runs.  The step and the
-    generator call the warp's body unjitted then, so that each warp is
-    traced, and recorded, on its own.  ``port()`` then
-    swaps the port's for versions with the same forward whose backward
-    takes JAX's branch wherever the port's argument lies within
-    ``margin`` of the kink (``follow``: the kinds it does so for), and
-    checks the rest: every argument farther away must already be on
-    JAX's side, every sample coordinate of the four warps (the
-    inter-stage warp, the D update's and the two loss warps) must lie
-    in the same cell of the sampler in both packages, and none on a
-    clamp end, where the TPU kernel that the port follows and JAX's
-    ``jnp.clip`` split the gradient differently.  On a host whose
-    rounding breaks that, the step fails loudly before it is compared.
-    """
-
-    def __init__(self, align_corners=True, margin=KINK_MARGIN, follow=KINDS, strict=True):
-        self.values = {k: [] for k in KINDS + ("grid",)}
-        self.align_corners, self.margin = align_corners, margin
-        self.follow, self.strict = follow, strict
-
-    def _tap(self, kind, fn):
-        store = self.values[kind]
-
-        def tapped(x, *args, **kw):
-            i = len(store)
-            store.append(None)
-            jax.debug.callback(lambda v: store.__setitem__(i, np.asarray(v)), x)
-            return fn(x, *args, **kw)
-
-        return tapped
-
-    @contextlib.contextmanager
-    def jax(self):
-        import flax.linen as nn
-
-        sample, warp = jax_warp.grid_sample, jax_warp.warp_image_fused
-        callers = [sys.modules[f.__module__] for f in (jax_make_train_step, JaxCascadedGenerator)]
-        saved = [(jax_losses, "jnp", jax_losses.jnp), (nn, "relu", nn.relu),
-                 (nn, "leaky_relu", nn.leaky_relu), (jax_warp, "grid_sample", sample)]
-        saved += [(m, "warp_image_fused", warp) for m in callers]
-        for m in callers:
-            m.warp_image_fused = warp.__wrapped__
-        jax_losses.jnp = _View(jnp, abs=self._tap("abs", jnp.abs))
-        nn.relu = self._tap("relu", nn.relu)
-        nn.leaky_relu = self._tap("leaky_relu", nn.leaky_relu)
-        grid_tap = self._tap("grid", lambda g: g)
-        jax_warp.grid_sample = lambda image, grid, **kw: sample(image, grid_tap(grid), **kw)
-        try:
-            yield
-            jax.effects_barrier()
-        finally:
-            for owner, name, value in saved:
-                setattr(owner, name, value)
-
-    def _kinked(self, kind, fn):
-        def kinked(x, *args, **kw):
-            i = self.calls[kind]
-            self.calls[kind] += 1
-            ref = torch.from_numpy(np.array(self.values[kind][i]))
-            if kind != "abs" and ref.dim() == 4:  # flax's NHWC, the port's NCHW
-                ref = ref.permute(0, 3, 1, 2)
-            assert ref.shape == x.shape, f"{kind} #{i}: {tuple(ref.shape)} != {tuple(x.shape)}"
-            slope = args[0] if args else kw.get("negative_slope", 0.01)
-            xd = x.detach()
-            ours, theirs = _branch(kind, xd, slope, False), _branch(kind, ref, slope, True)
-            near = xd.abs() < self.margin
-            far = (ours != theirs) & ~near
-            assert not (self.strict and far.any()), (
-                f"{kind} #{i}: {int(far.sum())} arguments at least {self.margin} from "
-                f"the kink take another branch than JAX's (port {xd[far][:4].tolist()}, "
-                f"JAX {ref[far][:4].tolist()})")
-            self.seen[kind].append((xd, ref))
-            if kind not in self.follow:
-                return fn(x, *args, **kw)
-            self.moved[kind] += int(((ours != theirs) & near).sum())
-            s = torch.where(near, theirs, ours)
-            return fn(x, *args, **kw).detach() + (x * s - (x * s).detach())
-
-        return kinked
-
-    def _cells(self, i, grid):
-        ref = torch.from_numpy(np.array(self.values["grid"][GRID_CALLS[i]]))
-        assert ref.shape == grid.shape, f"grid #{i}: {tuple(ref.shape)} != {tuple(grid.shape)}"
-        for axis, size in ((0, grid.shape[2]), (1, grid.shape[1])):
-            ours, theirs = (_unnormalize(g[..., axis], size, self.align_corners)
-                            for g in (grid, ref))
-            cell = [torch.floor(u.clamp(0, size - 1)) for u in (ours, theirs)]
-            out = [(u < 0) | (u > size - 1) for u in (ours, theirs)]
-            tie = [(u == 0) | (u == size - 1) for u in (ours, theirs)]
-            bad = (cell[0] != cell[1]) | (out[0] != out[1]) | tie[0] | tie[1]
-            self.seen["grid"].append(int(bad.sum()))
-            assert not (self.strict and bad.any()), (
-                f"warp #{i}, axis {axis}: {int(bad.sum())} sample coordinates lie in "
-                f"another cell of the sampler than JAX's, or on a clamp end (port "
-                f"{ours[bad][:4].tolist()}, JAX {theirs[bad][:4].tolist()})")
-
-    @contextlib.contextmanager
-    def port(self):
-        self.calls = {k: 0 for k in KINDS + ("grid",)}
-        self.seen = {k: [] for k in KINDS + ("grid",)}
-        self.moved = {k: 0 for k in self.follow}
-        kernels = port_warp.kernels
-
-        def sample(image, grid, *args):
-            self._cells(self.calls["grid"], grid)
-            self.calls["grid"] += 1
-            return kernels.grid_sample_f32(image, grid, *args)
-
-        saved = [(port_losses, "torch", port_losses.torch), (F, "relu", F.relu),
-                 (F, "leaky_relu", F.leaky_relu), (port_warp, "kernels", kernels)]
-        port_losses.torch = _View(torch, abs=self._kinked("abs", torch.abs))
-        F.relu = self._kinked("relu", F.relu)
-        F.leaky_relu = self._kinked("leaky_relu", F.leaky_relu)
-        port_warp.kernels = _View(kernels, grid_sample_f32=sample)
-        try:
-            yield self
-        finally:
-            for owner, name, value in saved:
-                setattr(owner, name, value)
-
-    def assert_all_matched(self):
-        """The port's step made as many calls of each kind as JAX's."""
-        expect = {k: len(v) for k, v in self.values.items()}
-        assert expect["grid"] == GRID_CALLS[-1] + 1, expect
-        assert self.calls == {**expect, "grid": len(GRID_CALLS)}, self.calls
+def _assert_step_close(m, jm, state, jstate, lr, updates):
+    """The metrics, G, D, the feature extractor and the EMA after a step
+    against JAX's, ``updates`` Adam updates into the run."""
+    assert set(m) == set(jm)
+    for k in jm:
+        assert m[k].device == CPU and m[k].dim() == 0
+        np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-4, err_msg=k)
+    _assert_params_close(state.g, jstate.g_params, lr, updates, "G")
+    _assert_params_close(state.d, jstate.d_params, lr, updates, "D")
+    _assert_params_close(state.feat, jstate.feat_params, 0.0, updates, "feat")
+    if jstate.g_ema is not None:
+        _assert_params_close(state.g_ema, jstate.g_ema, lr, updates, "EMA")
 
 
-
-def _run_pair(train_over, steps=2, check=True, kinks=False):
-    """Both steps on the same batches (``seeds``, default (3, 4)); after
-    each step's checks the port's whole state is set to JAX's, so each
-    step starts from one state on both sides.  ``kinks``: each step runs
-    through ``Kinks``.  Returns, per step, the share of G's and D's
-    elements that do not feed a norm within 1e-6 and their max |diff| /
-    lr."""
+def _run_pair(train_over, check=True):
+    """Both steps on ``SEEDS``, through ``Kinks``; after each step's
+    checks the port's whole state is set to JAX's, so each step starts
+    from one state on both sides.  Returns, per step, the share of G's
+    and D's elements that do not feed a norm within 1e-6, their max
+    |diff| / lr, and the arguments ``Kinks`` moved to JAX's branch, by
+    stream."""
     over = {**TCFG, **train_over}
-    seeds = over.pop("seeds", (3, 4))
     jstep, jstate, step, state = _pair(TINY, over)
-    taps = Kinks(TINY.get("align_corners", True)) if kinks else None
+    taps = Kinks(TINY.get("align_corners", True), accum=over.get("grad_accum_steps", 1),
+                 stages=TINY["num_stages"])
     lr = over["lr_g"]
     readings = []
-    for n, seed in enumerate(seeds[:steps], start=1):
+    for n, seed in enumerate(SEEDS, start=1):
         batch = make_train_batch(2, 32, 32, TINY["temporal_window"], seed=seed)
-        with taps.jax() if taps else contextlib.nullcontext():
-            jstate, jm = jstep(jstate, jax.tree_util.tree_map(jnp.asarray, batch))
-        with taps.port() if taps else contextlib.nullcontext():
-            m = step(state, batch_to_device(batch, CPU))
-        if taps:
-            taps.assert_all_matched()
+        jstate, jm, m = _step_both(taps, jstep, jstate, step, state, batch)
         readings.append({
-            what: (float((free <= 1e-6).double().mean()), float(free.max()) / lr)
-            for what, (_, free) in (("G", _param_diffs(state.g, jstate.g_params)),
-                                    ("D", _param_diffs(state.d, jstate.d_params)))})
+            **{what: (float((free <= 1e-6).double().mean()), float(free.max()) / lr)
+               for what, (_, free) in (("G", _param_diffs(state.g, jstate.g_params)),
+                                       ("D", _param_diffs(state.d, jstate.d_params)))},
+            "moved": dict(taps.moved)})
         if check:
-            assert set(m) == set(jm)
-            for k in jm:
-                assert m[k].device == CPU and m[k].dim() == 0
-                np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-4, err_msg=k)
             assert state.step == int(jstate.step) == n
-            _assert_params_close(state.g, jstate.g_params, lr, n, "G")
-            _assert_params_close(state.d, jstate.d_params, lr, n, "D")
-            _assert_params_close(state.feat, jstate.feat_params, 0.0, n, "feat")
-            if over.get("ema_decay", 0) > 0:
-                _assert_params_close(state.g_ema, jstate.g_ema, lr, n, "EMA")
+            _assert_step_close(m, jm, state, jstate, lr, n)
         _sync_from_jax(state, jstate, full=True)
     return readings
 
@@ -405,61 +245,115 @@ CASES = [
     {"pixel_loss_mode": p, "temporal_mode": t}
     for p in ("l1", "mean_matched", "gradient") for t in ("raw", "compensated")
 ] + [{"grad_accum_steps": 2}, {"ema_decay": 0.9}, {"gan_loss": "hinge"},
-     # batch 4 puts one of D's leaky-ReLU inputs within rounding of
-     # the kink at the vanilla second step (module docstring)
-     {"gan_loss": "vanilla", "seeds": (3, 5)}]
-
-
-def _through_kinks(train_over):
-    """Whether ``Kinks`` covers the case: the lsgan step without
-    accumulation (the hinge and vanilla losses have kinks of their own
-    that it does not swap, and the JAX accumulating step's micro-batches
-    would share one recording)."""
-    return (train_over.get("gan_loss", "lsgan") == "lsgan"
-            and train_over.get("grad_accum_steps", 1) == 1)
+     {"gan_loss": "vanilla"}]
 
 
 @pytest.mark.parametrize(
     "train_over", CASES, ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()),
 )
 def test_train_step_matches_jax(train_over):
-    _run_pair(train_over, kinks=_through_kinks(train_over))
+    _run_pair(train_over)
 
 
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind", KINDS + ("bce",))
 def test_each_package_takes_its_own_branch_at_the_kink(kind):
     """What each side's backward does on and around each kink, as
     ``Kinks`` models it: at exactly 0 ``torch.abs`` takes 0 and
-    ``jnp.abs`` +1, torch's leaky ReLU takes its slope and flax's 1;
-    both ReLUs take 0."""
+    ``jnp.abs`` +1, torch's leaky ReLU takes its slope and flax's 1,
+    torch's ``clamp(x, min=0)`` 1 and ``jnp.maximum(x, 0)`` 0.5; both
+    ReLUs take 0.  The BCE with logits pairs the last with ``abs``: at a
+    zero logit
+    ``jax.grad`` gives -t and torch 1 - t (the true derivative is
+    0.5 - t); away from 0 both give ``sigmoid(x) - t``, and ``Kinks``'s
+    two branches together give each package's derivative."""
     import flax.linen as nn
 
     x = np.array([-1e-7, -0.0, 0.0, 1e-7, 2.0], np.float32)
+    if kind == "bce":
+        xt = torch.from_numpy(x)
+        for target in (0.0, 1.0):
+            t = xt.clone().requires_grad_(True)
+            port_losses._bce_with_logits(t, target).sum().backward()
+            theirs = np.asarray(jax.grad(lambda v: jnp.sum(
+                jax_losses._bce_with_logits(v, target)))(jnp.asarray(x)))
+            assert (float(t.grad[2]), float(theirs[2])) == (1.0 - target, -target)
+            off = np.abs(x) > 0
+            smooth = torch.sigmoid(xt).numpy() - target
+            np.testing.assert_allclose(t.grad.numpy()[off], smooth[off], atol=1e-6)
+            np.testing.assert_allclose(theirs[off], smooth[off], atol=1e-6)
+            for got, jax_side in ((t.grad.numpy(), False), (theirs, True)):
+                model = (_branch("maximum", xt, 0, jax_side) - target
+                         - torch.sigmoid(-xt.abs()) * _branch("abs", xt, 0, jax_side))
+                np.testing.assert_allclose(got, model.numpy(), atol=1e-7)
+        return
     fns = {"abs": (torch.abs, jnp.abs), "relu": (F.relu, nn.relu),
            "leaky_relu": (lambda v: F.leaky_relu(v, 0.2),
-                          lambda v: nn.leaky_relu(v, negative_slope=0.2))}
+                          lambda v: nn.leaky_relu(v, negative_slope=0.2)),
+           "maximum": (lambda v: torch.clamp(v, min=0.0), lambda v: jnp.maximum(v, 0.0))}
     port_fn, jax_fn = fns[kind]
     t = torch.from_numpy(x).requires_grad_(True)
     port_fn(t).sum().backward()
     theirs = np.asarray(jax.grad(lambda v: jnp.sum(jax_fn(v)))(jnp.asarray(x)))
     np.testing.assert_array_equal(t.grad.numpy(), _branch(kind, t.detach(), 0.2, False).numpy())
     np.testing.assert_array_equal(theirs, _branch(kind, torch.from_numpy(x), 0.2, True).numpy())
-    at_zero = {"abs": (0.0, 1.0), "relu": (0.0, 0.0), "leaky_relu": (0.2, 1.0)}[kind]
+    at_zero = {"abs": (0.0, 1.0), "relu": (0.0, 0.0), "leaky_relu": (0.2, 1.0),
+               "maximum": (1.0, 0.5)}[kind]
     assert (float(t.grad[2]), float(theirs[2])) == pytest.approx(at_zero)
 
 
 def test_kinks_follow_jax_near_the_kink_and_fail_beyond_the_margin():
     """Within the margin the port's backward takes JAX's branch; an
-    argument farther away on the other side than JAX's fails the step."""
+    argument farther away on the other side than JAX's fails the step.
+    The BCE's pair near 0 takes JAX's derivative, -t at a zero logit."""
     taps = Kinks()
-    taps.values["abs"] = [np.array([-1e-3, 5e-6], np.float32)] * 2
+    taps.grid_calls, taps.jax_grids = (), 0
+    taps.values["losses.abs"] = [np.array([-1e-3, 5e-6], np.float32)] * 2
     x = torch.tensor([-1e-3, -5e-6], requires_grad=True)
     with taps.port():
         port_losses.torch.abs(x).sum().backward()
-        assert x.grad.tolist() == [-1.0, 1.0] and taps.moved["abs"] == 1
+        assert x.grad.tolist() == [-1.0, 1.0] and taps.moved["losses.abs"] == 1
         with pytest.raises(AssertionError, match="take another branch than JAX's"):
             port_losses.torch.abs(torch.tensor([1e-3, 5e-6]))
     assert port_losses.torch is torch
+    zero = np.zeros(3, np.float32)
+    taps.values.update({"losses.maximum": [zero], "losses.abs": [zero]})
+    x = torch.zeros(3, requires_grad=True)
+    with taps.port():
+        port_losses._bce_with_logits(x, 1.0).sum().backward()
+    taps.assert_all_matched()
+    assert x.grad.tolist() == [-1.0] * 3
+    assert taps.moved == {"losses.maximum": 3, "losses.abs": 3}
+
+
+def test_kinks_record_each_micro_batch_of_a_scan_and_hold_the_call_counts():
+    """A tapped call inside ``lax.scan`` records once per iteration, in
+    the order the iterations run, at every run of the jitted function;
+    the port calling it fewer or more times than JAX fails."""
+    taps = Kinks()
+    taps.grid_calls, taps.jax_grids = (), 0
+
+    @jax.jit
+    def scanned(xs):
+        def micro(total, x):
+            return total + jax_losses.pixel_loss(x, jnp.zeros_like(x)), None
+        return jax.lax.scan(micro, 0.0, xs)[0]
+
+    xs = np.arange(12, dtype=np.float32).reshape(3, 4) - 5.5
+    for run in (xs, -xs):
+        with taps.jax():
+            scanned(run)
+        assert [r.tolist() for r in taps.values["losses.abs"]] == run.tolist()
+    for calls, match in ((2, "port .*losses.abs.: 2.*JAX .*losses.abs.: 3"),
+                         (4, "calls it more often than JAX's")):
+        with pytest.raises(AssertionError, match=match):
+            with taps.port():
+                for x in np.resize(-xs, (calls, 4)):
+                    port_losses.pixel_loss_photometric(torch.from_numpy(x), torch.zeros(4))
+            taps.assert_all_matched()
+    with taps.port():
+        for x in -xs:
+            port_losses.pixel_loss_photometric(torch.from_numpy(x), torch.zeros(4))
+    taps.assert_all_matched()
 
 
 def test_step_updates_g_and_d_and_keeps_feat_frozen():

@@ -8,9 +8,11 @@ parallel test workers cannot collide on a port), reads the inputs the
 test wrote to ``WORK/inputs.npz``, runs every case and writes its
 results to ``WORK/rank<R>.npz`` and ``WORK/rank<R>.json``.  The
 data-parallel train step's case comes last: after its first step it
-waits for ``WORK/jax_sync.npz``, the JAX step's norm-fed conv biases
-(see ``tests/test_torch_port_train.py``), which the test writes while
-the ranks run the other cases.
+waits for ``WORK/jax_sync.npz``, the JAX step's whole state (every
+parameter of G and D, Adam's moments, the EMA if it is on; see
+``tests/test_torch_port_train.py``), which the test writes while the
+ranks run the other cases, and loads it, so that both ranks start the
+second step from JAX's state.
 
 It imports torch and the port only: no JAX.
 """
@@ -211,7 +213,7 @@ def case_cli(out, info, inputs, mesh):
 
 def case_dp_train(out, info, inputs, mesh):
     """Two data-parallel steps from the JAX state; after the first, the
-    norm-fed conv biases are set to the JAX step's (as
+    whole state is set to the JAX step's (as
     tests/test_torch_port_train.py does)."""
     cfg, tcfg = ModelConfig(**DP_TINY), TrainConfig(**DP_TCFG)
     state = replicate_tree(_dp_state(inputs, cfg, tcfg), mesh)
@@ -222,13 +224,22 @@ def case_dp_train(out, info, inputs, mesh):
         out.update(_flat(f"dp{n}_d.", state.d.state_dict()))
         out.update(_flat(f"dp{n}_f.", state.feat.state_dict()))
         if n == 1:
-            sync = _wait_for(os.path.join(info["work"], "jax_sync.npz"))
-            with torch.no_grad():
-                for module, prefix in ((state.g, "g."), (state.d, "d.")):
-                    for name, p in module.named_parameters():
-                        if prefix + name in sync:
-                            p.copy_(torch.from_numpy(sync[prefix + name]))
+            _load_jax_state(state, _wait_for(os.path.join(info["work"], "jax_sync.npz")))
     info["dp_step"] = state.step
+
+
+@torch.no_grad()
+def _load_jax_state(state, sync):
+    """Every parameter of G and D and its Adam moments from ``sync``
+    (``g.``, ``g_mu.``, ``g_nu.``, ``d.``, ...), and the EMA (``ema.``)
+    if the state keeps one."""
+    for what, module, opt in (("g", state.g, state.g_opt), ("d", state.d, state.d_opt)):
+        for name, p in module.named_parameters():
+            p.copy_(torch.from_numpy(sync[f"{what}.{name}"]))
+            opt.state[p]["exp_avg"].copy_(torch.from_numpy(sync[f"{what}_mu.{name}"]))
+            opt.state[p]["exp_avg_sq"].copy_(torch.from_numpy(sync[f"{what}_nu.{name}"]))
+    if state.g_ema is not None:
+        state.g_ema.load_state_dict(_state_dict(sync, "ema."))
 
 
 def _wait_for(path):
