@@ -164,8 +164,15 @@ Phases, each printing one JSON line:
              exactly one line, the JAX suite's metric, every key of
              ``bench.KEYS_OF_JAX_SUITE`` present and finite, the four
              parity gates inside their limits, a training mesh of 1,
-             every MFU in (0, 1] and every kernel launched; its seconds
-             and the headline.
+             every MFU in (0, 1] and every kernel launched; the
+             wall-clock windows of ``bench.measure_windows`` (240-frame
+             720p and 1080p clips, 200 live chunks, train() from a batch
+             pool and from a DeepStab tree): every ``bench.WINDOW_KEYS``
+             reading finite and > 0, each ``_n`` as
+             ``bench.WINDOW_SAMPLES`` asks, q1 <= median <= q3, the live
+             p90 at or above q3, each idle share in [0, 1] and each peak
+             memory in (0, the card's]; its seconds and the headline
+             (every reading under ``detail``).
 
 Then the ``kernels`` line (with the launches of each parallel path at
 world size 1: ``launches_dp_train``, ``launches_clip_sharded``,
@@ -1153,8 +1160,9 @@ def bench_phase(torch) -> dict:
     """The benchmark suite through ``cli.main(["bench"])`` in process, its
     stdout captured: exit 0, one line, the JAX suite's metric, every key
     of ``bench.KEYS_OF_JAX_SUITE`` present and finite, the gates inside
-    their limits, a training mesh of 1, every MFU in (0, 1] and every
-    kernel launched.  Returns the launches."""
+    their limits, a training mesh of 1, every MFU in (0, 1], every
+    kernel launched, and the wall-clock windows held as the module's
+    docstring says.  Returns the launches."""
     import contextlib
     import io
 
@@ -1189,6 +1197,26 @@ def bench_phase(torch) -> dict:
     mfu = {k: detail[k] for k in ("mfu_720p", "mfu_generator", "train_mfu")}
     check(all(0 < v <= 1 for v in mfu.values()), f"bench MFU {mfu}")
     check(all(n > 0 for n in launches.values()), f"bench launches {launches}")
+    # the wall-clock windows: every reading finite and > 0 with its count,
+    # its quartiles around it, an idle share in [0, 1] and a peak memory
+    # within the card's
+    bad = [k for k in bench.WINDOW_KEYS
+           if not isinstance(detail.get(k), (int, float)) or not math.isfinite(detail[k])
+           or detail[k] <= 0]
+    check(not bad, f"bench windows missing, not finite or not > 0: {bad}")
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    for key, n in bench.WINDOW_SAMPLES.items():
+        check(detail[f"{key}_n"] == n, f"bench {key}: {detail[f'{key}_n']} samples, not {n}")
+        check(detail[f"{key}_q1"] <= detail[key] <= detail[f"{key}_q3"],
+              f"bench {key}: quartiles {detail[f'{key}_q1']}, {detail[f'{key}_q3']} "
+              f"around {detail[key]}")
+        idle, peak = detail.get(f"{key}_idle_share"), detail.get(f"{key}_peak_mem_gb")
+        check(isinstance(idle, (int, float)) and 0 <= idle <= 1, f"bench {key} idle share {idle}")
+        check(isinstance(peak, (int, float)) and 0 < peak <= total_gb,
+              f"bench {key} peak memory {peak} GB of {total_gb:.1f}")
+    p90 = detail.get("live_720p_chunk1_ms_p90")
+    check(isinstance(p90, (int, float)) and p90 >= detail["live_720p_chunk1_ms_q3"],
+          f"bench live p90 {p90}")
     emit("bench", seconds=secs, headline=head, launches=launches)
     return launches
 

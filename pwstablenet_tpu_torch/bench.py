@@ -12,15 +12,18 @@ Prints ONE JSON line to stdout::
 ``value`` is the 720p device path at 16 windows a chunk; ``vs_baseline``
 divides it by 200 frames/s, the target that ``BASELINE.json`` sets (not
 a reading); ``detail`` holds every reading, rounded to 4 places, under
-the keys of ``KEYS_OF_JAX_SUITE``.  Everything else goes to stderr.  The
-suite runs on the card only: without CUDA it returns 1 and prints no
-headline.  It takes no flags.
+the keys of ``KEYS_OF_JAX_SUITE`` and then of ``WINDOW_KEYS``.
+Everything else goes to stderr.  The suite runs on the card only:
+without CUDA it returns 1 and prints no headline.  It takes no flags.
 
 First the parity gates: each CUDA kernel of ``kernels.grid_sample``
 against its plain version on the card (MSE <= 1e-6; the packed uint8
 kernel within 1 code).  If one fails, the suite prints the error line
 (``value`` 0.0, ``"error": "kernel parity failure"``) and returns 1.
-Then ``measure`` runs the configurations, at the JAX suite's shapes.
+Then ``measure`` runs the configurations, at the JAX suite's shapes,
+and ``measure_windows`` times the port's four user paths end to end:
+wall-clock windows that end on the host or in a synchronize, many of
+them, each reading a median with its quartiles and sample count.
 
 Where the readings differ from the JAX suite's:
 
@@ -47,12 +50,13 @@ Where the readings differ from the JAX suite's:
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import sys
 import tempfile
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +97,22 @@ KEYS_OF_JAX_SUITE = {
         "train_loop_wall_ms", "train_loop_wall_devdata_ms",
     )},
 }
+
+# each windowed reading of ``measure_windows`` -> its sample count at the
+# suite's sizes
+WINDOW_SAMPLES = {
+    "wall_fps_720p_clip": 7,
+    "wall_fps_1080p_clip": 7,
+    "live_720p_chunk1_ms": 200,
+    "train_steps_per_s_pool": 7,
+    "train_steps_per_s_deepstab": 7,
+}
+# the keys ``measure_windows`` always writes: each reading's median, its
+# quartiles and its sample count, and the seconds of making the DeepStab
+# tree.  Beside them it writes ``<reading>_p90`` where n >= 100, and on a
+# card ``<reading>_idle_share`` and ``<reading>_peak_mem_gb``.
+WINDOW_KEYS = tuple(f"{k}{s}" for k in WINDOW_SAMPLES for s in ("", "_q1", "_q3", "_n")) + (
+    "deepstab_make_data_s",)
 
 
 def log(msg: str) -> None:
@@ -433,6 +453,262 @@ def measure(
     return fps_720, results
 
 
+# ---------------------------------------------------------------------
+# wall-clock windows over the user paths
+# ---------------------------------------------------------------------
+
+
+def _summary(samples: Sequence[float]) -> Dict[str, float]:
+    """Median, quartiles (numpy's linear interpolation) and count of
+    ``samples``; the 90th percentile too where at least ten samples lie
+    beyond it (n >= 100)."""
+    a = np.asarray(samples, np.float64)
+    q1, median, q3 = np.percentile(a, [25, 50, 75])
+    out = {"median": float(median), "q1": float(q1), "q3": float(q3), "n": len(a)}
+    if len(a) >= 100:
+        out["p90"] = float(np.percentile(a, 90))
+    return out
+
+
+def _union_seconds(spans: Iterable[Tuple[float, float]]) -> float:
+    """Seconds covered by the union of ``(start_us, end_us)`` intervals."""
+    busy, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            busy += end - max(start, reach)
+            reach = end
+    return busy / 1e6
+
+
+class _TracedWindow:
+    """One window under ``torch.profiler`` on the card, from ``start()``
+    to ``stop()``, each at a synchronize: ``idle_share`` is 1 - the union
+    of the device's kernel, copy and set intervals / the window's wall
+    time.  Tracing costs the host time, so the timed windows run without
+    it and this one is taken after them."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.idle_share: Optional[float] = None
+        self.top: List[Tuple[str, float, int]] = []
+
+    def start(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize(self.device)
+        self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        self.prof.start()
+        self.t0 = time.perf_counter()
+
+    def stop(self) -> None:
+        from pwstablenet_tpu_torch.utils.timing import device_rows
+
+        torch.cuda.synchronize(self.device)
+        self.wall = time.perf_counter() - self.t0
+        self.prof.stop()
+        self.busy = _union_seconds(
+            (ev.time_range.start, ev.time_range.end) for ev in self.prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False))
+        if self.busy == 0.0:
+            raise RuntimeError("the traced window holds no device event")
+        self.idle_share = 1.0 - self.busy / self.wall
+        self.top = device_rows(self.prof)[:8]
+
+    def run(self, fn: Callable[[], object]) -> None:
+        self.start()
+        fn()
+        self.stop()
+
+
+def measure_windows(
+    device: torch.device,
+    rng: np.random.Generator,
+    model_cfg: Optional[ModelConfig] = None,
+    hd: Tuple[int, int] = (720, 1280),
+    fhd: Tuple[int, int] = (1080, 1920),
+    clip_frames: int = 240,
+    clip_calls: int = WINDOW_SAMPLES["wall_fps_720p_clip"],
+    live_warm: int = 10,
+    live_chunks: int = WINDOW_SAMPLES["live_720p_chunk1_ms"],
+    train_logs: int = WINDOW_SAMPLES["train_steps_per_s_pool"],
+    log_every: int = 10,
+    tree: Tuple[int, int, int, int] = (4, 60, 360, 640),
+) -> Dict[str, float]:
+    """The port's four user paths timed end to end on ``device``, each
+    sample a wall-clock window that ends on the host or in a
+    synchronize; returns the ``WINDOW_KEYS`` readings, unrounded.
+
+    - ``wall_fps_720p_clip``, ``wall_fps_1080p_clip``: frames/s of one
+      ``Stabilizer.stabilize_frames`` call (8 windows a chunk) on a
+      ``clip_frames``-frame uint8 clip at ``hd`` / ``fhd`` on the host,
+      host arrays out; one warm call, then ``clip_calls``.
+    - ``live_720p_chunk1_ms``: the causal mode (``temporal_center =
+      T-1``) at one window a chunk: ms of ``_dispatch_chunk(frames[i:i+T])
+      .result()`` (pinned H2D, the chunk step, D2H of one frame and its
+      flow) over successive frames of the 720p clip, serially;
+      ``live_warm`` chunks, then ``live_chunks``.
+    - ``train_steps_per_s_pool``: ``train.loop.train`` fed by a cycle
+      over 8 pre-made ``make_train_batch`` host batches (made
+      untimed); each sample is 1 / ``sec_per_step`` of one log (``log_every``
+      steps ending in the metrics' sync), the first log (warm-up)
+      dropped, ``train_logs`` kept.
+    - ``train_steps_per_s_deepstab``: the same, fed by
+      ``data.deepstab.batch_iterator`` at the default ``DataConfig`` on a
+      ``write_synthetic_deepstab`` tree of ``tree`` = (pairs, frames,
+      height, width); the seconds of making it are
+      ``deepstab_make_data_s``.
+
+    The readings use ``model_cfg`` (the default ``ModelConfig()``: full
+    width, bf16, seeded weights) and inputs drawn from ``rng``.  On a
+    card, beside each reading: ``_peak_mem_gb`` (the peak allocated
+    over its timed windows) and ``_idle_share`` from one more window,
+    traced after the timed ones (one clip call, 10 chunks, or one log
+    of steps)."""
+    from pwstablenet_tpu_torch.config import DataConfig
+    from pwstablenet_tpu_torch.data.deepstab import (
+        DeepStabDataset, batch_iterator, write_synthetic_deepstab,
+    )
+    from pwstablenet_tpu_torch.data.synthetic import make_train_batch
+    from pwstablenet_tpu_torch.pipeline import Stabilizer
+    from pwstablenet_tpu_torch.train.loop import train
+
+    model_cfg = model_cfg or ModelConfig()
+    card = device.type == "cuda"
+    T = model_cfg.temporal_window
+    results: Dict[str, float] = {}
+
+    def reset_peak() -> None:
+        if card:
+            torch.cuda.reset_peak_memory_stats(device)
+
+    def peak_gb() -> Optional[float]:
+        return torch.cuda.max_memory_allocated(device) / 1e9 if card else None
+
+    def record(key: str, samples: Sequence[float], unit: str, peak: Optional[float],
+               traced: Optional[_TracedWindow]) -> None:
+        s = _summary(samples)
+        results[key] = s["median"]
+        for q in ("q1", "q3", "n", "p90"):
+            if q in s:
+                results[f"{key}_{q}"] = s[q]
+        msg = (f"{key}: median {s['median']:.4f} {unit} (q1 {s['q1']:.4f}, "
+               f"q3 {s['q3']:.4f}, n {s['n']}")
+        msg += f", p90 {s['p90']:.4f})" if "p90" in s else ")"
+        if card:
+            results[f"{key}_peak_mem_gb"] = peak
+            results[f"{key}_idle_share"] = traced.idle_share
+            msg += (f"; peak {peak:.3f} GB; traced window: device busy "
+                    f"{traced.busy * 1e3:.2f} of {traced.wall * 1e3:.2f} ms, idle "
+                    f"{100 * traced.idle_share:.1f}%, top device rows "
+                    f"{[(k[:60], round(ms, 3), c) for k, ms, c in traced.top]}")
+        log(msg)
+
+    def traced(fn: Callable[[], object]) -> Optional[_TracedWindow]:
+        if not card:
+            return None
+        window = _TracedWindow(device)
+        window.run(fn)
+        return window
+
+    # ---- offline stabilization: a clip in host memory, host arrays out ----
+    stab = Stabilizer(model_cfg, PipelineConfig(), device=device)
+    clip_hd = None
+    for key, (h, w) in (("wall_fps_720p_clip", hd), ("wall_fps_1080p_clip", fhd)):
+        clip = _frames(rng, clip_frames, h, w)
+        out, flows = stab.stabilize_frames(clip)  # warm
+        if out.shape != clip.shape or out.dtype != np.uint8 or flows.shape[0] != len(clip):
+            raise RuntimeError(f"stabilize_frames returned {out.shape} {out.dtype}, "
+                               f"flows {flows.shape}")
+        del out, flows
+        reset_peak()
+        fps = []
+        for _ in range(clip_calls):
+            t0 = time.perf_counter()
+            stab.stabilize_frames(clip)
+            fps.append(len(clip) / (time.perf_counter() - t0))
+        record(key, fps, "frames/s", peak_gb(), traced(lambda: stab.stabilize_frames(clip)))
+        if clip_hd is None:
+            clip_hd = clip
+        del clip
+
+    # ---- the live mode: one causal window a chunk, serially ----
+    causal_cfg = dataclasses.replace(model_cfg, temporal_center=T - 1)
+    live = Stabilizer(causal_cfg, PipelineConfig(batch_windows=1),
+                      state_dict=stab.model.state_dict(), device=device)
+    del stab
+    starts = len(clip_hd) - T + 1
+
+    def live_chunk(i: int):
+        s = i % starts
+        return live._dispatch_chunk(clip_hd[s : s + T]).result()
+
+    for i in range(live_warm):
+        live_chunk(i)
+    reset_peak()
+    ms = []
+    for i in range(live_warm, live_warm + live_chunks):
+        t0 = time.perf_counter()
+        live_chunk(i)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    after = live_warm + live_chunks
+    record("live_720p_chunk1_ms", ms, "ms", peak_gb(),
+           traced(lambda: [live_chunk(after + i) for i in range(10)]))
+    del live, clip_hd
+    _sync(device)
+    torch.cuda.empty_cache()  # a no-op where CUDA was never initialised
+
+    # ---- training: train() from a batch pool in memory, then from disk ----
+    mh, mw = model_cfg.model_resolution
+
+    def train_windows(key: str, batches: Iterable[dict]) -> None:
+        logs: List[dict] = []
+        window = _TracedWindow(device) if card else None
+        peak: List[float] = []
+
+        def collect(m: dict) -> None:
+            logs.append(m)
+            if len(logs) == train_logs + 1:
+                peak.append(peak_gb())
+                if window is not None:
+                    window.start()
+            elif window is not None and len(logs) == train_logs + 2:
+                window.stop()
+
+        with tempfile.TemporaryDirectory(prefix="pwstable_bench_") as ckpt_dir:
+            tcfg = TrainConfig(log_every=log_every, checkpoint_dir=ckpt_dir)
+            reset_peak()
+            # the warm-up log, the timed ones and, on a card, the traced one
+            train(model_cfg, tcfg, batches, log_fn=collect, device=device,
+                  max_steps=(train_logs + 1 + int(card)) * log_every)
+        record(key, [1.0 / m["sec_per_step"] for m in logs[1 : train_logs + 1]],
+               "steps/s", peak[0], window)
+
+    batch_size = TrainConfig().batch_size
+    host_batches = [make_train_batch(batch_size, mh, mw, T, seed=int(rng.integers(1 << 31)),
+                                     temporal_center=model_cfg.temporal_center)
+                    for _ in range(8)]
+    train_windows("train_steps_per_s_pool", itertools.cycle(host_batches))
+    del host_batches
+
+    pairs, frames, h, w = tree
+    with tempfile.TemporaryDirectory(prefix="pwstable_bench_") as root:
+        t0 = time.perf_counter()
+        write_synthetic_deepstab(root, num_pairs=pairs, frames=frames, height=h, width=w,
+                                 seed=int(rng.integers(1 << 31)))
+        results["deepstab_make_data_s"] = time.perf_counter() - t0
+        log(f"deepstab tree ({pairs} pairs of {frames} frames of {h}x{w}): "
+            f"{results['deepstab_make_data_s']:.2f} s to make (not timed)")
+        data = DeepStabDataset(DataConfig(data_root=root, crop_size=(mh, mw)), T,
+                               model_cfg.temporal_center)
+        it = batch_iterator(data, batch_size)
+        try:
+            train_windows("train_steps_per_s_deepstab", it)
+        finally:
+            it.close()
+    return results
+
+
 def main() -> int:
     device = _card()
     if device is None:
@@ -449,6 +725,7 @@ def main() -> int:
         return 1
     fps_720, readings = measure(device, rng)
     results.update(readings)
+    results.update(measure_windows(device, rng))
     print(json.dumps({
         "metric": METRIC,
         "value": round(fps_720, 1),

@@ -3,9 +3,12 @@ its keys against the JAX suite's (the root ``bench.py``, read as text),
 the measuring function at a TINY model and frame sizes with
 ``device_time`` on a host clock, the flop count against the generator's
 convolutions counted independently, the parity gates and their refusal,
-the refusal without a card, and an import that loads no JAX."""
+the refusal without a card, and an import that loads no JAX; then the
+wall-clock windows (``measure_windows``) at TINY and small sizes, their
+summary against numpy and the busy-interval union."""
 
 import importlib.util
+import inspect
 import json
 import math
 import os
@@ -182,6 +185,8 @@ def test_the_headline_is_the_only_stdout_line(monkeypatch, capsys):
     monkeypatch.setattr(bench, "_card", lambda: torch.device("cpu"))
     readings = {"fps_720p_device": 412.34567, "train_mesh_devices": 1}
     monkeypatch.setattr(bench, "measure", lambda device, rng: (412.34567, dict(readings)))
+    windows = {"live_720p_chunk1_ms": 14.123456, "live_720p_chunk1_ms_n": 200}
+    monkeypatch.setattr(bench, "measure_windows", lambda device, rng: dict(windows))
     assert bench.main() == 0
     out = capsys.readouterr().out.strip().splitlines()
     assert len(out) == 1
@@ -190,8 +195,23 @@ def test_the_headline_is_the_only_stdout_line(monkeypatch, capsys):
         "metric": "720p stabilized frames/sec/chip", "value": 412.3,
         "unit": "frames/sec/chip", "vs_baseline": 2.062,
         "detail": {**dict.fromkeys(GATE_KEYS, 0.0), "fps_720p_device": 412.3457,
-                   "train_mesh_devices": 1},
+                   "train_mesh_devices": 1, "live_720p_chunk1_ms": 14.1235,
+                   "live_720p_chunk1_ms_n": 200},
     }
+
+
+def test_a_failing_window_fails_the_run(monkeypatch, capsys):
+    """A reading that raises is not caught: no headline, no exit 0."""
+    monkeypatch.setattr(bench, "_card", lambda: torch.device("cpu"))
+    monkeypatch.setattr(bench, "measure", lambda device, rng: (1.0, {}))
+
+    def failing(device, rng):
+        raise RuntimeError("the traced window holds no device event")
+
+    monkeypatch.setattr(bench, "measure_windows", failing)
+    with pytest.raises(RuntimeError, match="no device event"):
+        bench.main()
+    assert capsys.readouterr().out == ""
 
 
 def test_no_card_no_headline(monkeypatch, capsys):
@@ -216,3 +236,112 @@ def test_the_suite_imports_no_jax():
     out = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True,
                          cwd=REPO, timeout=120, check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+# ---------------------------------------------------------------------
+# the wall-clock windows
+# ---------------------------------------------------------------------
+
+WINDOW_COUNTS = {"wall_fps_720p_clip": 3, "wall_fps_1080p_clip": 3, "live_720p_chunk1_ms": 10,
+                 "train_steps_per_s_pool": 2, "train_steps_per_s_deepstab": 2}
+
+
+@pytest.mark.parametrize("n", [1, 7, 99, 100, 250])
+def test_summary_is_numpys(n):
+    samples = np.random.default_rng(n).lognormal(0.0, 0.5, n)
+    s = bench._summary(list(samples))
+    assert s["median"] == pytest.approx(float(np.median(samples)), rel=1e-12)
+    assert s["q1"] == pytest.approx(float(np.percentile(samples, 25)), rel=1e-12)
+    assert s["q3"] == pytest.approx(float(np.percentile(samples, 75)), rel=1e-12)
+    assert s["n"] == n and s["q1"] <= s["median"] <= s["q3"]
+    if n >= 100:
+        assert s["p90"] == pytest.approx(float(np.percentile(samples, 90)), rel=1e-12)
+        assert int((samples > s["p90"]).sum()) >= 10
+    else:
+        assert set(s) == {"median", "q1", "q3", "n"}
+
+
+@pytest.mark.parametrize("spans, seconds", [
+    ([], 0.0),
+    ([(0.0, 10.0)], 10e-6),
+    ([(20.0, 30.0), (0.0, 10.0)], 20e-6),            # disjoint, unsorted
+    ([(0.0, 10.0), (5.0, 15.0)], 15e-6),             # overlapping
+    ([(0.0, 30.0), (5.0, 10.0), (12.0, 40.0)], 40e-6),  # nested, then past it
+    ([(0.0, 10.0), (10.0, 20.0)], 20e-6),            # touching
+])
+def test_busy_is_the_union_of_device_intervals(spans, seconds):
+    assert bench._union_seconds(spans) == pytest.approx(seconds, abs=1e-15)
+
+
+def test_window_keys_are_apart_from_the_jax_suites():
+    assert not set(bench.WINDOW_KEYS) & set(bench.KEYS_OF_JAX_SUITE.values())
+    assert not set(bench.WINDOW_KEYS) & set(bench.KEYS_OF_JAX_SUITE)
+    assert len(set(bench.WINDOW_KEYS)) == len(bench.WINDOW_KEYS) == 21
+    assert bench.WINDOW_SAMPLES == {
+        "wall_fps_720p_clip": 7, "wall_fps_1080p_clip": 7, "live_720p_chunk1_ms": 200,
+        "train_steps_per_s_pool": 7, "train_steps_per_s_deepstab": 7}
+    # the defaults give those counts: 7 clip calls, 200 chunks, 7 logs
+    defaults = {k: p.default for k, p in inspect.signature(bench.measure_windows).parameters.items()}
+    assert (defaults["clip_calls"], defaults["live_chunks"], defaults["train_logs"]) == (7, 200, 7)
+    assert (defaults["clip_frames"], defaults["hd"], defaults["fhd"]) == (240, (720, 1280), (1080, 1920))
+    assert (defaults["log_every"], defaults["tree"]) == (10, (4, 60, 360, 640))
+
+
+@pytest.fixture(scope="module")
+def tiny_windows():
+    """``measure_windows`` at TINY on the CPU: 12-frame clips of 36x64 and
+    40x72, 12 live chunks (2 warm), 6 train steps a run (log every 2) from
+    the pool of 8 batches and from a 1-pair tree of 12 frames of 64x96.
+    Records every ``train`` call's logs and every live chunk's frames."""
+    from pwstablenet_tpu_torch.pipeline import Stabilizer
+    from pwstablenet_tpu_torch.train import loop
+
+    runs, live = [], []
+    real_train, real_dispatch = loop.train, Stabilizer._dispatch_chunk
+
+    def recording_train(*a, log_fn, **k):
+        logs = []
+        runs.append((logs, k))
+        return real_train(*a, log_fn=lambda m: (logs.append(m), log_fn(m)), **k)
+
+    def recording_dispatch(self, frames, allow_short=False):
+        if self.pipeline_cfg.batch_windows == 1:
+            live.append((frames.shape, self.model_cfg.temporal_center))
+        return real_dispatch(self, frames, allow_short)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(loop, "train", recording_train)
+        mp.setattr(Stabilizer, "_dispatch_chunk", recording_dispatch)
+        results = bench.measure_windows(
+            torch.device("cpu"), np.random.default_rng(0), TINY, hd=(36, 64), fhd=(40, 72),
+            clip_frames=12, clip_calls=3, live_warm=2, live_chunks=10, train_logs=2,
+            log_every=2, tree=(1, 12, 64, 96))
+    return results, runs, live
+
+
+def test_windows_write_every_key(tiny_windows):
+    results, _, _ = tiny_windows
+    # on the CPU: no idle share, no peak memory, and no p90 under 100 samples
+    assert set(results) == set(bench.WINDOW_KEYS)
+    bad = {k: v for k, v in results.items() if not (math.isfinite(v) and v > 0)}
+    assert not bad, bad
+    for key, n in WINDOW_COUNTS.items():
+        assert results[f"{key}_n"] == n
+        assert results[f"{key}_q1"] <= results[key] <= results[f"{key}_q3"]
+
+
+def test_live_chunks_are_causal_windows_of_one(tiny_windows):
+    _, _, live = tiny_windows
+    T = TINY.temporal_window
+    assert live == [((T, 36, 64, 3), T - 1)] * 12
+
+
+def test_train_samples_are_the_logs_after_the_first(tiny_windows):
+    results, runs, _ = tiny_windows
+    assert len(runs) == 2
+    for key, (logs, kwargs) in zip(("train_steps_per_s_pool", "train_steps_per_s_deepstab"), runs):
+        assert kwargs["max_steps"] == 6 and kwargs["device"] == torch.device("cpu")
+        assert [m["step"] for m in logs] == [2, 4, 6]
+        s = bench._summary([1.0 / m["sec_per_step"] for m in logs[1:]])
+        assert (results[key], results[f"{key}_q1"], results[f"{key}_q3"]) == (
+            s["median"], s["q1"], s["q3"])
