@@ -30,9 +30,19 @@ Phases, each printing one JSON line:
 4. main    - ``Stabilizer(ModelConfig(), PipelineConfig(batch_windows=8))``
              at full width, seeded random weights with small nonzero
              heads, stabilizes a 24-frame 720p uint8 clip; both forward
-             kernels must have been launched.  Then one f32 chunk (TF32
-             off) on the card and on the CPU with the same weights:
-             flows MSE <= 1e-3 and atol 1e-3, frames +-1 code.
+             kernels must have been launched.  ``stream``: that
+             ``stabilize_frames`` against the chunk-by-chunk path it
+             replaced (``chunk_by_chunk``: the whole clip padded on the
+             host, each group of n + T - 1 frames sent through
+             ``_chunk_step``), on the clip and on its first 13 frames (a
+             padded flush chunk): bitwise equal, each frame staged once,
+             a second call's results apart from the first's, and no
+             pinned memory kept for the first call's results while the
+             caller holds them; frames/s and CPU seconds of both, in
+             turns.  Then
+             one f32 chunk (TF32 off) on the card and on the CPU with the
+             same weights: flows MSE <= 1e-3 and atol 1e-3, frames +-1
+             code.
 5. train   - ``train()`` with the full default ``ModelConfig()`` and
              ``TrainConfig(batch_size=8)`` (bf16, 256x256) on the port's
              synthetic batches for 5 steps: losses finite, G and D
@@ -1298,6 +1308,95 @@ def benchmark_phase(torch) -> None:
     emit("benchmark", seconds=time.perf_counter() - t_phase, cells=len(spec["workloads"]))
 
 
+def chunk_by_chunk(torch, np, st, clip):
+    """``stabilize_frames`` as it was before the halo stayed on the card:
+    lead- and tail-pad the whole clip on the host, send each group of
+    ``n + T - 1`` frames at stride ``n`` to the card through
+    ``_chunk_step`` (the last padded to ``batch_windows`` windows with
+    copies of its last frame), keep its valid rows, concatenate."""
+    cfg = st.model_cfg
+    T, n = cfg.temporal_window, st.pipeline_cfg.batch_windows
+    padded = np.concatenate([np.repeat(clip[:1], cfg.center_index, axis=0), clip,
+                             np.repeat(clip[-1:], cfg.future_frames, axis=0)])
+    outs, flows = [], []
+    for s in range(0, len(clip), n):
+        take = min(n, len(clip) - s)
+        group = padded[s : s + take + T - 1]
+        group = np.concatenate([group, np.repeat(group[-1:], n - take, axis=0)])
+        out, flow = st._chunk_step(torch.from_numpy(group).cuda())
+        outs.append(out[:take].cpu().numpy())
+        flows.append(flow[:take].cpu().numpy())
+    return np.concatenate(outs), np.concatenate(flows)
+
+
+def stream_gate(torch, np, st, clip) -> None:
+    """``stabilize_frames`` (each frame staged to the card once, the last
+    T-1 frames and their downscales kept there between chunks, results
+    copied into the returned arrays chunk by chunk) against
+    ``chunk_by_chunk`` on the card, on the main path's ``Stabilizer``:
+    bitwise equal on the clip and on its first 13 frames (a full chunk,
+    then 5 windows padded to 8); each frame staged once; a second call's
+    results apart from the first's (no shared memory; writing into the
+    first leaves the second as it was); the caching host allocator's
+    pinned bytes grow by less than one call's results over the second
+    call, while the caller holds the first's (the results are plain
+    memory, the pinned blocks those of the chunks in flight); wall and
+    CPU seconds of each path, in turns after a warm call, and frames/s."""
+    from pwstablenet_tpu_torch import pipeline as P
+
+    staged = []
+    send = P._Ring.send
+
+    def counted(ring):
+        staged.append(ring.filled)
+        return send(ring)
+
+    readings = {}
+    for name, c in (("clip", clip), ("short", clip[:13])):
+        P._Ring.send = counted
+        try:
+            del staged[:]
+            first = st.stabilize_frames(c)
+            n_staged = sum(staged)
+        finally:
+            P._Ring.send = send
+        want = chunk_by_chunk(torch, np, st, c)
+        pinned_before = torch.cuda.host_memory_stats()["allocated_bytes.current"]
+        check(np.array_equal(first[0], want[0]) and np.array_equal(first[1], want[1]),
+              f"{name}: stabilize_frames bitwise equal to the chunk-by-chunk path")
+        second = st.stabilize_frames(c)
+        pinned_growth = (torch.cuda.host_memory_stats()["allocated_bytes.current"]
+                         - pinned_before)
+        result_bytes = sum(a.nbytes for a in second)
+        check(n_staged == len(c), f"{name}: {n_staged} frames staged for {len(c)}")
+        check(pinned_growth < result_bytes,
+              f"{name}: {pinned_growth} pinned bytes more for a call whose results "
+              f"take {result_bytes}")
+        check(not any(np.shares_memory(a, b) for a, b in zip(first, second)),
+              f"{name}: two calls' results share memory")
+        for a in first:
+            a[...] = 0
+        check(np.array_equal(second[0], want[0]) and np.array_equal(second[1], want[1]),
+              f"{name}: the second call's results changed with the first's")
+        secs = {"stream": [], "chunk_by_chunk": []}
+        cpu = {"stream": [], "chunk_by_chunk": []}
+        for _ in range(3):
+            for key, fn in (("stream", lambda: st.stabilize_frames(c)),
+                            ("chunk_by_chunk", lambda: chunk_by_chunk(torch, np, st, c))):
+                torch.cuda.synchronize()
+                t0, c0 = time.perf_counter(), time.process_time()
+                fn()
+                secs[key].append(time.perf_counter() - t0)
+                cpu[key].append(time.process_time() - c0)
+        readings[name] = {
+            "frames": len(c), "frames_staged": n_staged, "bitwise_equal": True,
+            "pinned_growth_bytes": pinned_growth, "result_bytes": result_bytes,
+            **{f"{k}_frames_per_s": len(c) / statistics.median(v) for k, v in secs.items()},
+            **{f"{k}_s": v for k, v in secs.items()}, **{f"{k}_cpu_s": v for k, v in cpu.items()}}
+    emit("stream", **readings, frame_size=list(clip.shape[1:3]),
+         batch_windows=st.pipeline_cfg.batch_windows)
+
+
 def chunk_vs_cpu_f32(torch, np, cfg, sd, clip, n=2) -> dict:
     """One f32 chunk of ``n`` windows of ``clip`` (TF32 off) through
     ``Stabilizer(cfg)`` with weights ``sd`` on the card and on the CPU:
@@ -1713,6 +1812,7 @@ def main() -> int:
           and launches["grid_sample_grad_f32"] == 0, f"kernel launches {launches}")
     emit("main", frames=list(out.shape), flows=list(flows.shape), seconds=main_s,
          launches=launches, flow_abs_max=flow_max, share_pixels_changed=changed)
+    stream_gate(torch, np, st, clip)
 
     # one f32 chunk on the card and on the CPU, same weights, TF32 off
     sd = {k: v.cpu() for k, v in st.model.state_dict().items()}

@@ -4,11 +4,15 @@ fields out.
 - The generator always runs at its fixed ``model_resolution``; warp
   fields are emitted in resolution-independent normalized units and
   applied to the full-resolution frames by the packed uint8 kernel.
-- Frames cross host->device once per chunk, as uint8 from pinned host
-  memory; the temporal window stack is built on the device (a frame is
-  reused by up to ``temporal_window`` windows).
+- Each frame crosses host->device once, as uint8 through a ring of
+  pinned slots, and is downscaled once: the last ``temporal_window - 1``
+  frames and their downscales stay on the device between chunks, and
+  the temporal window stack is built there (a frame is reused by up to
+  ``temporal_window`` windows).
 - Chunks stream with a bounded number in flight: chunk i+k is dispatched
-  while chunk i's results copy back into pinned host memory.
+  while chunk i's results copy back into pinned host memory (in
+  ``stabilize_frames``, a worker thread then copies them into the arrays
+  it returns).
 - ``stabilize_video`` is the file layer around that stream: native or
   OpenCV decode, incremental encode, warp fields streamed to an archive.
 - Clip-sharded (``Stabilizer(mesh=...)``, ``parallel.mesh``): every rank
@@ -23,6 +27,7 @@ without a card and without ``device="cpu"`` they raise.
 from __future__ import annotations
 
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -68,29 +73,108 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 class _Pending:
-    """A dispatched chunk: device results copying back to the host."""
+    """A dispatched chunk: the ``valid`` rows of its device results copying
+    back into fresh page-locked blocks (the caching host allocator's, which
+    recycles them once they are dropped); pad rows are never copied."""
 
-    def __init__(self, stab: torch.Tensor, flow: torch.Tensor, pad: int, src):
-        self.pad = pad
+    def __init__(self, stab: torch.Tensor, flow: torch.Tensor, valid: int, src=None):
+        stab, flow = stab[:valid], flow[:valid]
         self._src = src  # keep the pinned H2D source alive until done
         self.event = None
         if stab.device.type == "cuda":
-            self.stab = torch.empty(stab.shape, dtype=stab.dtype, pin_memory=True)
-            self.flow = torch.empty(flow.shape, dtype=flow.dtype, pin_memory=True)
-            self.stab.copy_(stab, non_blocking=True)
-            self.flow.copy_(flow, non_blocking=True)
+            host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                         for t in (stab, flow))
+            for h, t in zip(host, (stab, flow)):
+                h.copy_(t, non_blocking=True)
+            stab, flow = host
             self.event = torch.cuda.Event()
             self.event.record()
-        else:
-            self.stab, self.flow = stab, flow
+        self.stab, self.flow = stab, flow
 
     def result(self) -> Tuple[np.ndarray, np.ndarray]:
         if self.event is not None:
             self.event.synchronize()
-        stab, flow = self.stab.numpy(), _to_numpy(self.flow)
-        if self.pad:
-            stab, flow = stab[: -self.pad], flow[: -self.pad]
-        return stab, flow
+        return self.stab.numpy(), _to_numpy(self.flow)
+
+
+class _Into:
+    """``stabilize_frames``' results: one plain array pair for the whole
+    clip, the caller's once returned.  One worker thread copies each
+    chunk's rows in from its page-locked blocks once its D2H has completed,
+    while the caller's thread launches the next chunks; at most ``limit``
+    chunks wait for it, so the pinned blocks in use stay those of the
+    chunks in flight, whatever the clip's length."""
+
+    def __init__(self, frames: int):
+        self.frames = frames
+        self.pair: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        self.at = 0
+        self.jobs: list = []
+        self.worker = ThreadPoolExecutor(1, thread_name_prefix="pwst-results")
+
+    def put(self, pending: _Pending, limit: int) -> None:
+        stab, flow = pending.stab.numpy(), _to_numpy(pending.flow)  # not yet filled
+        if self.pair is None:
+            self.pair = tuple(np.empty((self.frames, *a.shape[1:]), a.dtype)
+                              for a in (stab, flow))
+        i, self.at = self.at, self.at + len(stab)
+        self.jobs.append(self.worker.submit(self._copy, pending, i))
+        while len(self.jobs) > limit:
+            self.jobs.pop(0).result()
+
+    def _copy(self, pending: _Pending, i: int) -> None:
+        for out, a in zip(self.pair, pending.result()):
+            # as bytes, which numpy copies with the GIL released
+            out[i : i + len(a)].view(np.uint8)[...] = a.view(np.uint8)
+
+    def result(self) -> Tuple[np.ndarray, np.ndarray]:
+        while self.jobs:
+            self.jobs.pop(0).result()
+        return self.pair
+
+    def close(self) -> None:
+        self.worker.shutdown(cancel_futures=True)
+
+
+class _Ring:
+    """Host slots that carry a stream's new frames to the device, used in
+    turn: page-locked on the card, where a slot is written again only once
+    the H2D that read it has completed; one plain slot on the CPU, where
+    the frames are consumed before ``send`` returns."""
+
+    def __init__(self, device: torch.device, slots: int):
+        self.device = device
+        n = slots if device.type == "cuda" else 1
+        self.slots: list = [None] * n
+        self.events: list = [None] * n
+        self.i = 0
+        self.filled = 0
+
+    def put(self, frames: np.ndarray, capacity: int) -> None:
+        """Append ``frames`` to the current slot (of ``capacity`` frames)."""
+        i = self.i
+        if self.filled == 0:
+            if self.events[i] is not None:
+                self.events[i].synchronize()
+            if self.slots[i] is None:
+                self.slots[i] = torch.empty(
+                    (capacity, *frames.shape[1:]), dtype=getattr(torch, frames.dtype.name),
+                    pin_memory=self.device.type == "cuda")
+        # numpy's copy runs on this thread; torch's wakes the intra-op
+        # threads, whose spinning slows the launches and the results' worker
+        np.copyto(self.slots[i][self.filled : self.filled + len(frames)].numpy(), frames)
+        self.filled += len(frames)
+
+    def send(self) -> torch.Tensor:
+        """The current slot's frames on the device; the next slot becomes
+        current."""
+        i = self.i
+        t = self.slots[i][: self.filled].to(self.device, non_blocking=True)
+        if self.device.type == "cuda":
+            self.events[i] = torch.cuda.Event()
+            self.events[i].record()
+        self.i, self.filled = (i + 1) % len(self.slots), 0
+        return t
 
 
 class Stabilizer:
@@ -150,21 +234,38 @@ class Stabilizer:
         weights arguments of the exported program).  Under a mesh, rank
         ``r`` of ``size`` takes windows ``[r*k, (r+1)*k)``, ``k = n /
         size``, and so only frames ``[r*k, r*k + k + T - 1)``."""
+        frames = self._rank_rows(frames)
+        return self._windows(frames, self._downscale(frames), state_dict)
+
+    def _rank_rows(self, frames: torch.Tensor) -> torch.Tensor:
+        """The frames of this rank's windows of a chunk (all of them
+        without a mesh)."""
+        mesh = self.mesh
+        if mesh is None:
+            return frames
+        n = (frames.shape[0] - (self.model_cfg.temporal_window - 1)) // mesh.size
+        return frames[mesh.rank * n : mesh.rank * n + n + self.model_cfg.temporal_window - 1]
+
+    def _downscale(self, frames: torch.Tensor) -> torch.Tensor:
+        """Frames -> [-1, 1] at model resolution, (N, mh, mw, 3); each
+        frame on its own, so a frame's downscale does not depend on the
+        others of the batch."""
+        # antialiased bilinear downscale (jax.image.resize's default)
+        return F.interpolate(
+            to_unit(frames).permute(0, 3, 1, 2), size=self.model_cfg.model_resolution,
+            mode="bilinear", align_corners=False, antialias=True,
+        ).permute(0, 2, 3, 1)
+
+    def _windows(
+        self, frames: torch.Tensor, small: torch.Tensor,
+        state_dict: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The windows of a chunk's frames (raw, N+T-1) and their
+        downscales -> (stabilized, flows), all-gathered under a mesh."""
         cfg = self.model_cfg
-        mh, mw = cfg.model_resolution
         T = cfg.temporal_window
         is_int = not frames.dtype.is_floating_point
         n = frames.shape[0] - (T - 1)
-        mesh = self.mesh
-        if mesh is not None:
-            n //= mesh.size
-            frames = frames[mesh.rank * n : mesh.rank * n + n + T - 1]
-        framesf = to_unit(frames)
-        # antialiased bilinear downscale (jax.image.resize's default)
-        small = F.interpolate(
-            framesf.permute(0, 3, 1, 2), size=(mh, mw), mode="bilinear",
-            align_corners=False, antialias=True,
-        ).permute(0, 2, 3, 1)
         # window j contributes frames [j, j+n)
         stacks = torch.cat([small[j : j + n] for j in range(T)], dim=-1)
         if state_dict is None:
@@ -180,9 +281,40 @@ class Stabilizer:
         if is_int and stabilized.dtype.is_floating_point:
             stabilized = from_unit(stabilized)
         flow = flow.to(getattr(torch, self.pipeline_cfg.warp_field_dtype))
+        mesh = self.mesh
         if mesh is not None:
             stabilized, flow = all_gather_rows(stabilized, mesh), all_gather_rows(flow, mesh)
         return stabilized, flow
+
+    @torch.inference_mode()
+    def _take_in(self, new: torch.Tensor, held, lead: int):
+        """A stream's new frames (on the device) appended to ``held``, the
+        frames of the padded clip already there and their downscales;
+        ``held`` None: the clip's first frames, after ``lead`` copies of
+        the first.  Each new frame is converted and downscaled once."""
+        small = self._downscale(new)
+        if held is None:
+            return (torch.cat([new[:1].expand(lead, *new.shape[1:]), new]),
+                    torch.cat([small[:1].expand(lead, *small.shape[1:]), small]))
+        return torch.cat([held[0], new]), torch.cat([held[1], small])
+
+    @torch.inference_mode()
+    def _carried_step(self, held, take: int, width: int):
+        """The next chunk of a stream from the frames on the device: its
+        ``take`` windows, the frames beyond ``held``'s last repeating it,
+        padded with copies of the chunk's last frame to ``width`` windows
+        (the pad rows are not results)."""
+        T = self.model_cfg.temporal_window
+        chunk = []
+        for t in held:
+            g = t[: take + T - 1]
+            fill = take + T - 1 - g.shape[0]
+            if fill > 0:
+                g = torch.cat([g, t[-1:].expand(fill, *t.shape[1:])])
+            if width > take:
+                g = torch.cat([g, g[-1:].expand(width - take, *g.shape[1:])])
+            chunk.append(self._rank_rows(g))
+        return self._windows(*chunk)
 
     # ------------------------------------------------------------------
     def stabilize_frames(
@@ -198,11 +330,15 @@ class Stabilizer:
           (time, h, w, 2) normalized displacements at model resolution,
           in ``warp_field_dtype``; bfloat16 as ``ml_dtypes.bfloat16``).
         """
-        outs, flows = [], []
-        for s, f in self._stream(iter([frames]), batch_windows):
-            outs.append(s)
-            flows.append(f)
-        return np.concatenate(outs), np.concatenate(flows)
+        if len(frames) == 0:
+            raise ValueError("stabilize_frames: the clip has no frames")
+        into = _Into(len(frames))
+        try:
+            for _ in self._stream(iter([frames]), batch_windows, into):
+                pass
+            return into.result()
+        finally:
+            into.close()
 
     def stabilize_video(
         self,
@@ -299,71 +435,89 @@ class Stabilizer:
 
     # ------------------------------------------------------------------
     def _stream(
-        self, chunks: Iterator[np.ndarray], batch_windows: Optional[int]
+        self, chunks: Iterator[np.ndarray], batch_windows: Optional[int],
+        into: Optional[_Into] = None,
     ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        """Streaming loop over decoded chunks.
+        """Streaming loop over decoded chunks, each frame staged to the
+        device once.
 
-        Keeps a halo of ``temporal_window - 1`` frames between chunks;
-        the clip edges are replicate-padded with ``center_index`` lead
-        frames and ``future_frames`` tail frames (none in the causal
-        mode, ``temporal_center == T-1``).  At most
-        ``prefetch_depth + 1`` chunks are in flight."""
+        The clip edges are replicate-padded with ``center_index`` lead
+        frames and ``future_frames`` tail frames (none in the causal mode,
+        ``temporal_center == T-1``), made on the device from the first and
+        last frame.  Source chunks of any size are consumed in place:
+        their frames go through the pinned slots of a ``_Ring`` to the
+        device, where the last ``T-1`` frames of the padded clip and their
+        downscales are kept between chunks (the halo), so each chunk
+        sends, converts and downscales only its new frames.  Chunks of
+        ``n`` windows go at stride ``n``; the last is padded to
+        ``batch_windows`` with copies of its last frame; a
+        ``batch_windows`` below the configured one is refused.  At most
+        ``prefetch_depth + 1`` chunks are in flight.  Each yielded pair
+        stays valid; with ``into``, the results go to it and nothing is
+        yielded."""
         cfg = self.model_cfg
         T = cfg.temporal_window
-        lead_pad = cfg.center_index
-        tail_pad = cfg.future_frames
         n = batch_windows or self.pipeline_cfg.batch_windows
+        n_target = self.pipeline_cfg.batch_windows
+        if n < n_target:
+            raise ValueError(f"batch_windows ({n}) is below the configured {n_target}")
         depth = max(self.pipeline_cfg.prefetch_depth, 1) + 1
+        ring = _Ring(self.device, depth + 1)
         inflight: list = []
+        held = None  # frames of the padded clip on the device, and their downscales
 
         def drain(limit: int):
             while len(inflight) > limit:
                 yield inflight.pop(0).result()
 
-        carry: Optional[np.ndarray] = None  # trailing T-1 frames
-        first = True
+        def dispatch(take: int):
+            nonlocal held
+            stab, flow = self._carried_step(held, take, max(take, n_target))
+            if into is None:
+                inflight.append(_Pending(stab, flow, take))
+            else:
+                into.put(_Pending(stab, flow, take), depth)
+            held = tuple(t[take:] for t in held)
+
+        # the first chunk's new frames follow its lead pad, made on the device
+        first = n + cfg.future_frames
+        need = first
         for chunk in chunks:
-            if first:
-                lead = np.repeat(chunk[:1], lead_pad, axis=0)
-                chunk = np.concatenate([lead, chunk])
-                first = False
-            if carry is not None:
-                chunk = np.concatenate([carry, chunk])
-            while chunk.shape[0] >= n + T - 1:
-                inflight.append(self._dispatch_chunk(chunk[: n + T - 1]))
-                yield from drain(depth)
-                chunk = chunk[n:]
-            carry = chunk
-        if carry is not None:
-            # flush: replicate-pad the end, then emit remaining windows
-            tail = np.repeat(carry[-1:], tail_pad, axis=0)
-            buf = np.concatenate([carry, tail])
-            while buf.shape[0] >= T:
-                take = min(n, buf.shape[0] - (T - 1))
-                inflight.append(
-                    self._dispatch_chunk(buf[: take + T - 1], allow_short=True)
-                )
-                yield from drain(depth)
-                buf = buf[take:]
+            pos = 0
+            while pos < len(chunk):
+                k = min(need - ring.filled, len(chunk) - pos)
+                ring.put(chunk[pos : pos + k], first)
+                pos += k
+                if ring.filled == need:
+                    held = self._take_in(ring.send(), held, cfg.center_index)
+                    dispatch(n)
+                    yield from drain(depth)
+                    need = n
+        if ring.filled:
+            held = self._take_in(ring.send(), held, cfg.center_index)
+        if held is None:
+            return
+        # flush: the tail pad repeats the last frame; the last chunk is short
+        left = held[0].shape[0] + cfg.future_frames - (T - 1)
+        while left > 0:
+            take = min(n, left)
+            dispatch(take)
+            yield from drain(depth)
+            left -= take
         yield from drain(0)
 
     def _dispatch_chunk(
         self, frames: np.ndarray, allow_short: bool = False
     ) -> _Pending:
-        """Dispatch one chunk without waiting for it."""
-        T = self.model_cfg.temporal_window
-        n_target = self.pipeline_cfg.batch_windows
-        n = frames.shape[0] - (T - 1)
-        if n < n_target and not allow_short:
+        """Dispatch one chunk of whole windows without waiting for it;
+        fewer windows than configured only with ``allow_short``, and then
+        unpadded."""
+        n = frames.shape[0] - (self.model_cfg.temporal_window - 1)
+        if n < self.pipeline_cfg.batch_windows and not allow_short:
             raise ValueError("internal: short chunk without allow_short")
-        # pad short flush chunks to the configured chunk size
-        pad = 0
-        if n < n_target:
-            pad = n_target - n
-            frames = np.concatenate([frames, np.repeat(frames[-1:], pad, axis=0)])
         src = _to_device(frames, self.device)
         stabilized, flow = self._chunk_step(src)
-        return _Pending(stabilized, flow, pad, src)
+        return _Pending(stabilized, flow, n, src)
 
     def _crop_margins(self, h: int, w: int) -> Tuple[int, int]:
         frac = max(self.pipeline_cfg.border_crop_frac, 0.0)

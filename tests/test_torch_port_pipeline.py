@@ -8,6 +8,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import tracemalloc
 
 import numpy as np
 import pytest
@@ -87,19 +88,30 @@ def _assert_close(out, flows, ref_out, ref_flows):
         np.testing.assert_allclose(out, ref_out, atol=5e-4)
 
 
-@pytest.mark.parametrize(
-    "overrides",
-    [{}, {"temporal_center": 4}],
-    ids=["centered", "causal"],
-)
-def test_stabilize_frames_matches_reference(overrides):
-    """11 frames in chunks of 4 windows: two full chunks (halo carry)
-    and a padded short flush chunk."""
-    ref, port = _pair(overrides)
-    clip = _clip()
+MODES = (("centered", {}), ("causal", {"temporal_center": SMALL["temporal_window"] - 1}))
+REFERENCE_CASES = [
+    pytest.param(overrides, 11, 4, id=mode) for mode, overrides in MODES
+] + [
+    pytest.param(overrides, frames, bw, id=f"{mode}-bw{bw}-{frames}f")
+    for mode, overrides in MODES
+    for bw in (1, 4)
+    for frames in (1, 5, 11, 13, 2 * bw + SMALL["temporal_window"] - 1)
+    if (frames, bw) != (11, 4)
+]
+
+
+@pytest.mark.parametrize("overrides,frames,batch_windows", REFERENCE_CASES)
+def test_stabilize_frames_matches_reference(overrides, frames, batch_windows):
+    """The port's stream against the reference's at every clip length the
+    stream treats apart: one frame and clips shorter than one chunk (only
+    a padded flush chunk), 11 frames in chunks of 4 windows (two full
+    chunks carrying the halo, then a padded flush chunk), two full chunks
+    and no flush, and one window a chunk."""
+    ref, port = _pair(overrides, batch_windows)
+    clip = _clip(frames=frames)
     ref_out, ref_flows = ref.stabilize_frames(clip)
     out, flows = port.stabilize_frames(clip)
-    assert out.shape == clip.shape and flows.shape == (11, 32, 32, 2)
+    assert out.shape == clip.shape and flows.shape == (frames, 32, 32, 2)
     _assert_close(out, flows, ref_out, ref_flows)
 
 
@@ -179,13 +191,22 @@ def test_bf16_fields_without_ml_dtypes_refused_at_construction(monkeypatch):
 
 
 def test_stream_chunks_equal_one_shot():
-    """Decoded chunks of any size give the same frames as one array."""
+    """Decoded chunks of any size give the same frames as one array:
+    chunks of 3, 6 and 4 frames, of 1, of 3, of 9, and of mixed sizes;
+    and a view of the clip with a negative stride."""
     _, port = _pair()
     clip = _clip(frames=13)
     out, flows = port.stabilize_frames(clip)
-    parts = list(port._stream(iter([clip[:3], clip[3:9], clip[9:]]), None))
-    np.testing.assert_array_equal(np.concatenate([p[0] for p in parts]), out)
-    np.testing.assert_array_equal(np.concatenate([p[1] for p in parts]), flows)
+    for sizes in ([3, 6, 4], [1] * 13, [3] * 5, [9, 4], [1, 9, 2, 1], [5, 0, 1, 7]):
+        bounds = np.cumsum([0, *sizes])
+        parts = list(port._stream(iter([clip[a:b] for a, b in zip(bounds, bounds[1:])]),
+                                  None))
+        np.testing.assert_array_equal(np.concatenate([p[0] for p in parts]), out,
+                                      err_msg=str(sizes))
+        np.testing.assert_array_equal(np.concatenate([p[1] for p in parts]), flows,
+                                      err_msg=str(sizes))
+    backwards = clip[::-1].copy()[::-1]
+    np.testing.assert_array_equal(port.stabilize_frames(backwards)[0], out)
 
 
 def test_border_crop_matches_reference():
@@ -284,3 +305,174 @@ def test_cli_help_runs_without_jax():
     bad = sorted(m for m in imported
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "pwstablenet_tpu"))
     assert not bad, bad
+
+
+# ---------------------------------------------------------------------
+# the stream against the chunk-by-chunk algorithm it replaced
+# ---------------------------------------------------------------------
+
+
+def _port(overrides=None, batch_windows=4, **pipe):
+    """A port ``Stabilizer`` at SMALL with seeded weights and nonzero warp
+    heads (no JAX weights: these tests compare the port with itself)."""
+    st = pipeline.Stabilizer(ModelConfig(**{**SMALL, **(overrides or {})}),
+                             PipelineConfig(batch_windows=batch_windows, **pipe),
+                             seed=2, device="cpu")
+    gen = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        for name, m in st.model.named_children():
+            if name.startswith("stage"):
+                m.head.weight.copy_(torch.randn(m.head.weight.shape, generator=gen) * 0.05)
+    return st
+
+
+def _chunk_by_chunk(st, clip):
+    """``stabilize_frames`` as it was: lead- and tail-pad the whole clip on
+    the host, send each group of ``n + T - 1`` frames at stride ``n``
+    through ``_chunk_step`` (the last padded to ``batch_windows`` windows
+    with copies of its last frame), keep each group's valid rows, and
+    concatenate."""
+    cfg = st.model_cfg
+    T, n = cfg.temporal_window, st.pipeline_cfg.batch_windows
+    padded = np.concatenate([np.repeat(clip[:1], cfg.center_index, axis=0), clip,
+                             np.repeat(clip[-1:], cfg.future_frames, axis=0)])
+    outs, flows = [], []
+    for s in range(0, len(clip), n):
+        take = min(n, len(clip) - s)
+        group = padded[s : s + take + T - 1]
+        group = np.concatenate([group, np.repeat(group[-1:], n - take, axis=0)])
+        out, flow = st._chunk_step(torch.from_numpy(group))
+        outs.append(out[:take].numpy())
+        flows.append(pipeline._to_numpy(flow[:take]))
+    return np.concatenate(outs), np.concatenate(flows)
+
+
+STREAM_CASES = [
+    pytest.param(frames, bw, mode, "uint8", id=f"{mode}-bw{bw}-{frames}f")
+    for mode in ("centred", "causal")
+    for bw in (1, 4)
+    for frames in (1, 5, 11, 13, 2 * bw + SMALL["temporal_window"] - 1)
+] + [pytest.param(11, 4, "centred", "float32", id="centred-bw4-11f-float32-bf16")]
+
+
+@pytest.mark.parametrize("frames,batch_windows,mode,dtype", STREAM_CASES)
+def test_stabilize_frames_bitwise_equal_to_chunk_by_chunk(
+        monkeypatch, frames, batch_windows, mode, dtype):
+    """The stream is bitwise equal to the chunk-by-chunk algorithm, and
+    each frame of the clip is staged to the device and downscaled once."""
+    overrides = {"temporal_center": SMALL["temporal_window"] - 1} if mode == "causal" else {}
+    pipe = {"warp_field_dtype": "bfloat16"} if dtype == "float32" else {}
+    st = _port(overrides, batch_windows, **pipe)
+    clip = _clip(frames=frames)
+    if dtype == "float32":
+        clip = clip.astype(np.float32) / 127.5 - 1.0
+    staged, downscaled = [], []
+    send, downscale = pipeline._Ring.send, pipeline.Stabilizer._downscale
+    monkeypatch.setattr(pipeline._Ring, "send",
+                        lambda ring: staged.append(ring.filled) or send(ring))
+    monkeypatch.setattr(pipeline.Stabilizer, "_downscale",
+                        lambda self, f: downscaled.append(len(f)) or downscale(self, f))
+    out, flows = st.stabilize_frames(clip)
+    monkeypatch.undo()
+    assert sum(staged) == sum(downscaled) == frames, (staged, downscaled)
+    want_out, want_flows = _chunk_by_chunk(st, clip)
+    assert out.dtype == want_out.dtype and flows.dtype == want_flows.dtype
+    assert out.shape == clip.shape and flows.shape == (frames, 32, 32, 2)
+    assert np.abs(want_flows.astype(np.float32)).max() > 1e-3  # a real warp
+    np.testing.assert_array_equal(out, want_out)
+    np.testing.assert_array_equal(flows.view(np.uint8), want_flows.view(np.uint8))
+
+
+def test_results_belong_to_the_caller():
+    """Two calls share no memory, writing into the first leaves the second
+    as it was, and the pieces ``_stream`` yields stay as they were after
+    the stream ends."""
+    st = _port()
+    clip = _clip(frames=11)
+    first, first_flows = st.stabilize_frames(clip)
+    second, second_flows = st.stabilize_frames(clip)
+    assert not np.shares_memory(first, second)
+    assert not np.shares_memory(first_flows, second_flows)
+    want, want_flows = second.copy(), second_flows.copy()
+    first[...] = 0
+    first_flows[...] = 0
+    np.testing.assert_array_equal(second, want)
+    np.testing.assert_array_equal(second_flows, want_flows)
+    parts = list(st._stream(iter([clip[:4], clip[4:]]), None))
+    assert len(parts) == 3
+    assert not any(np.shares_memory(a[0], b[0]) for i, a in enumerate(parts)
+                   for b in parts[i + 1:])
+    np.testing.assert_array_equal(np.concatenate([p[0] for p in parts]), want)
+    np.testing.assert_array_equal(np.concatenate([p[1] for p in parts]), want_flows)
+
+
+def test_stream_allocates_no_clip_sized_host_copy():
+    """``_stream`` over a 64-frame clip given as one source chunk, each
+    result dropped as it comes: the numpy and Python allocations at their
+    peak stay within one chunk of frames (``n + T - 1``), not the clip."""
+    st = _port()
+    clip = _clip(frames=64, h=96, w=128)
+    chunk_bytes = (4 + SMALL["temporal_window"] - 1) * clip[0].nbytes
+    for _ in st._stream(iter([clip[:8]]), None):  # first-call imports and caches
+        pass
+    tracemalloc.start()
+    try:
+        count = 0
+        for out, _ in st._stream(iter([clip]), None):
+            count += len(out)
+            del out
+        _, peak = tracemalloc.get_traced_memory()
+    finally:
+        tracemalloc.stop()
+    assert count == 64
+    assert peak < chunk_bytes, (peak, chunk_bytes, clip.nbytes)
+
+
+def test_batch_windows_below_configured_refused():
+    """A ``batch_windows`` below the configured one is refused before any
+    chunk runs; one above it runs, its flush chunk padded to the
+    configured width."""
+    st = _port()
+    clip = _clip(frames=11)
+    with pytest.raises(ValueError, match="below the configured"):
+        st.stabilize_frames(clip, batch_windows=2)
+    wide = st.stabilize_frames(clip, batch_windows=6)
+    np.testing.assert_array_equal(wide[0], st.stabilize_frames(clip)[0])
+
+
+def test_failed_stream_stops_the_results_worker(monkeypatch):
+    """A chunk that fails mid-clip raises from ``stabilize_frames`` and
+    leaves no results worker thread running."""
+    import threading
+
+    st = _port()
+    calls = []
+    step = pipeline.Stabilizer._carried_step
+
+    def failing(self, *args):
+        calls.append(1)
+        if len(calls) == 2:
+            raise RuntimeError("planted failure")
+        return step(self, *args)
+
+    monkeypatch.setattr(pipeline.Stabilizer, "_carried_step", failing)
+    with pytest.raises(RuntimeError, match="planted failure"):
+        st.stabilize_frames(_clip(frames=11))
+    assert not [t for t in threading.enumerate() if t.name.startswith("pwst-results")]
+
+
+def test_results_worker_under_fast_thread_switching():
+    """With the interpreter switching threads every microsecond, the
+    results' worker thread still fills every row of a 40-chunk clip with
+    its own chunk: bitwise equal to the chunk-by-chunk algorithm."""
+    st = _port(batch_windows=1)
+    clip = _clip(frames=40, h=24, w=32)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        out, flows = st.stabilize_frames(clip)
+    finally:
+        sys.setswitchinterval(interval)
+    want_out, want_flows = _chunk_by_chunk(st, clip)
+    np.testing.assert_array_equal(out, want_out)
+    np.testing.assert_array_equal(flows, want_flows)
