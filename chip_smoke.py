@@ -60,6 +60,21 @@ Phases, each printing one JSON line:
              Then one f32 step (TF32 off) at a tiny config on the card
              and on the CPU from one state and batch: metrics rtol 1e-4,
              parameters within 1e-6 on 99.9 %.
+             ``configs``: the JAX package's non-default settings, the
+             three combinations of ``CONFIGS`` (with the defaults every
+             value of every choice of the port's config and CLI), each
+             at full width in one line: ``stabilize_frames`` of the
+             24-frame 720p clip (fields' dtype, > 1 % of pixels changed,
+             every kernel's launches equal to ``config_launches``),
+             ``stabilize_video`` of the clip as an FFV1 file (the border
+             crop bitwise, the archive only under ``emit_warp_fields``),
+             the f32 chunk against the CPU's, 2 steps of ``train()`` at
+             batch 8 (G, D and the EMA changed, launches as derived) and
+             the tiny f32 step against the CPU's (without dropout; the
+             hinge adversarial term at the scale of its logits); then
+             ``cli stabilize --synthetic`` (720p) and ``cli train
+             --synthetic --steps 2`` with A's flags, and a
+             ``configs_total`` line with the phase's seconds.
              ``train_debug_nans`` (after the train timing):
              ``train()`` with ``debug_nans``, ``log_every`` 5 and
              ``checkpoint_every`` 1 on a float batch whose ``stable`` is
@@ -197,8 +212,9 @@ Then the ``kernels`` line (with the launches of each parallel path at
 world size 1: ``launches_dp_train``, ``launches_clip_sharded``,
 ``launches_spatial``, of the clip from the ``.pth``:
 ``launches_interop``, of the causal mode's first call:
-``launches_causal``, of the recipe phase: ``launches_recipe``, and of
-the benchmark suite: ``launches_bench``), the
+``launches_causal``, of the recipe phase: ``launches_recipe``, of the
+configs phase's ``stabilize_frames`` and ``train()`` calls:
+``launches_configs``, and of the benchmark suite: ``launches_bench``), the
 card's name and power limit from
 ``nvidia-smi``, and ``{"ok": true, "device": {...}}`` as the last line.
 Any failed check raises and exits non-zero.
@@ -220,6 +236,46 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
 HOLD_CYCLES = 2_000_000        # ~1 ms of SM clock: time_launches' stream hold
 SEED = 0
+
+# The JAX package's non-default model, pipeline and training settings in
+# three combinations that, with the defaults, take every value of every
+# choice that the port's config and CLI offer
+# (tests/test_torch_configs_stabilize.py holds that; the two
+# tests/test_torch_configs_*.py files hold each combination to the JAX
+# package on the CPU).  The configs phase runs each at full width.
+CONFIGS = {
+    "A-group-phaseconv-features-zeros": {
+        "model": {"norm": "group", "disc_norm": "group", "decoder_impl": "phase_conv",
+                  "interstage": "features", "padding_mode": "zeros",
+                  "align_corners": False},
+        "pipeline": {"warp_field_dtype": "float16", "border_crop_frac": 0.05},
+        "train": {"gan_loss": "hinge", "pixel_loss_mode": "mean_matched",
+                  "temporal_mode": "raw", "grad_accum_steps": 2},
+    },
+    "B-batch-warped-reflection": {
+        "model": {"norm": "batch", "disc_norm": "batch", "interstage": "warped",
+                  "padding_mode": "reflection"},
+        "pipeline": {"warp_field_dtype": "bfloat16"},
+        "train": {"gan_loss": "vanilla", "pixel_loss_mode": "gradient", "ema_decay": 0.999},
+    },
+    "C-none-onestage-f32": {
+        "model": {"norm": "none", "disc_norm": "none", "num_stages": 1, "use_dropout": True,
+                  "compute_dtype": "float32"},
+        "pipeline": {"emit_warp_fields": False},
+        "train": {},
+    },
+}
+# the phase's train() steps: 2 keep the whole script well inside its time limit
+CONFIGS_TRAIN_STEPS = 2
+# A's settings that the CLI takes (it has no padding or align_corners flag)
+CONFIGS_CLI_MODEL = ["--norm", "group", "--decoder-impl", "phase_conv",
+                     "--interstage", "features"]
+CONFIGS_CLI_TRAIN = ["--gan-loss", "hinge", "--pixel-loss-mode", "mean_matched",
+                     "--temporal-mode", "raw", "--grad-accum", "2"]
+# the tiny model of the card-vs-CPU f32 train steps
+TINY_TRAIN = dict(temporal_window=3, num_levels=4, base_features=8, max_features=16,
+                  model_resolution=(32, 32), num_stages=2, disc_num_layers=2,
+                  feat_channels=(8, 16), compute_dtype="float32")
 
 
 def emit(phase: str, **fields) -> None:
@@ -302,6 +358,38 @@ def profile_device(torch, fn, trace_dir=None):
             "annotations_not_counted_ms": annotations}
 
 
+def launched(fn):
+    """(fn(), seconds, the kernel launches during it), synced on both
+    ends."""
+    import torch
+
+    from pwstablenet_tpu_torch.kernels import grid_sample as K
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0, dict(K.LAUNCHES)
+
+
+def run_cli(argv):
+    """``cli.main(argv)`` in process, stdout captured: (its last line
+    as JSON, every line, seconds, kernel launches); exit 0 and some
+    output checked."""
+    import contextlib
+    import io
+
+    from pwstablenet_tpu_torch.cli.main import main as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, secs, launches = launched(lambda: cli(argv))
+    lines = buf.getvalue().strip().splitlines()
+    check(rc == 0 and lines, f"cli {argv[0]}: rc {rc}, output {lines[-3:]}")
+    return json.loads(lines[-1]), lines, secs, launches
+
+
 def surface(torch, np, st, clip, out, flows, work) -> None:
     """The user-facing surface on the card: the streaming loop behind
     ``stabilize_video`` (``_stream_to``), the warp-field archive and
@@ -316,15 +404,6 @@ def surface(torch, np, st, clip, out, flows, work) -> None:
     from pwstablenet_tpu_torch.data.warp_fields import WarpFieldWriter, load_warp_fields
     from pwstablenet_tpu_torch.kernels import grid_sample as K
     from pwstablenet_tpu_torch.pipeline import Stabilizer, apply_warp_fields
-
-    def launched(fn):
-        """(fn(), seconds, launches during it)"""
-        torch.cuda.synchronize()
-        K.reset_launch_counts()
-        t0 = time.perf_counter()
-        result = fn()
-        torch.cuda.synchronize()
-        return result, time.perf_counter() - t0, dict(K.LAUNCHES)
 
     n_frames = clip.shape[0]
     both = ("grid_sample_f32", "grid_sample_packed_u8")
@@ -433,18 +512,6 @@ def surface(torch, np, st, clip, out, flows, work) -> None:
 
     from pwstablenet_tpu_torch.cli.main import main as cli
     from pwstablenet_tpu_torch.utils.tb_writer import read_event_file
-
-    def run_cli(argv):
-        buf = io.StringIO()
-        torch.cuda.synchronize()
-        K.reset_launch_counts()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = cli(argv)
-        torch.cuda.synchronize()
-        lines = buf.getvalue().strip().splitlines()
-        check(rc == 0 and lines, f"cli {argv[0]}: rc {rc}, output {lines[-3:]}")
-        return (json.loads(lines[-1]), lines, time.perf_counter() - t0, dict(K.LAUNCHES))
 
     cli_wf = os.path.join(work, "cli_fields.npz")
     line, _, secs, launches = run_cli(
@@ -1558,6 +1625,273 @@ def recipe(torch, np) -> dict:
     return launches
 
 
+def config_launches(model: dict, chunks: int = 0, steps: int = 0, accum: int = 1,
+                    uint8: bool = True) -> dict:
+    """The kernel launches that ``chunks`` chunks of a clip (``uint8``,
+    else float) through a ``Stabilizer`` and ``steps`` train steps of
+    ``accum`` micro-batches make under the ``ModelConfig`` overrides
+    ``model``, as the code makes them.  A generator forward warps between
+    its stages (f32) only when ``interstage`` feeds the next stage the
+    warped frame.  A chunk's output warp takes the packed kernel for a
+    uint8 clip under border or reflection padding, else the f32 kernel.  A train step warps the last stage's
+    flow once for D, with no gradient, and every stage's flow for G's
+    loss, each with a d/dgrid launch in the backward; accumulating, each
+    micro-batch runs the generator in both phases, with no gradient in
+    the first."""
+    stages = model.get("num_stages", 2)
+    inter = stages - 1 if model.get("interstage", "both") in ("warped", "both") else 0
+    packed = int(uint8 and model.get("padding_mode", "border") in ("border", "reflection"))
+    if accum == 1:
+        f32_step, grad_step = inter + 1 + stages, inter + stages
+    else:
+        f32_step, grad_step = accum * (2 * inter + 1 + stages), accum * (inter + stages)
+    return {"grid_sample_f32": chunks * (inter + 1 - packed) + steps * f32_step,
+            "grid_sample_packed_u8": chunks * packed,
+            "grid_sample_grad_f32": steps * grad_step}
+
+
+def configs(torch, np, clip, work) -> dict:
+    """Each combination of ``CONFIGS`` at full width (``ModelConfig()``
+    with its overrides; weights from the seed, heads drawn small as the
+    main path's), one ``configs`` line each:
+
+    1. ``Stabilizer(cfg, PipelineConfig(batch_windows=8, **pipeline))``:
+       ``stabilize_frames`` of the main path's 24-frame 720p clip (the
+       frames' and fields' shapes and dtypes, finite fields, > 1 % of the
+       pixels changed, each kernel's launches as ``config_launches``
+       derives them), then ``stabilize_video`` of the clip as a lossless
+       file: the border crop of those frames, bitwise, and the warp-field
+       archive bitwise equal to the fields, or none without
+       ``emit_warp_fields``;
+    2. one f32 chunk on the card and on the CPU (``chunk_vs_cpu_f32``);
+    3. ``train()`` at ``TrainConfig(batch_size=8, **train)``,
+       ``CONFIGS_TRAIN_STEPS`` steps on synthetic batches: finite losses,
+       G, D and the EMA changed, the launches as derived;
+    4. one tiny f32 step on the card and on the CPU
+       (``tiny_step_vs_cpu``), without dropout: the two devices draw
+       different masks.
+
+    Then ``stabilize --synthetic`` (720p) and ``train --synthetic
+    --steps 2`` through the CLI with A's flags (``CONFIGS_CLI_MODEL``,
+    ``CONFIGS_CLI_TRAIN``): exit 0, launches as derived; and a
+    ``configs_total`` line with the phase's seconds.  Returns the
+    launches of the combinations' ``stabilize_frames`` and ``train()``
+    calls, summed."""
+    from pwstablenet_tpu_torch.cli.main import _model_cfg, build_parser
+    from pwstablenet_tpu_torch.config import ModelConfig, PipelineConfig, TrainConfig
+    from pwstablenet_tpu_torch.data import video_io
+    from pwstablenet_tpu_torch.data.warp_fields import bfloat16, load_warp_fields
+    from pwstablenet_tpu_torch.pipeline import Stabilizer
+    from pwstablenet_tpu_torch.train.loop import synthetic_batch_iterator, train
+    from pwstablenet_tpu_torch.train.state import create_train_state
+
+    t_phase = time.perf_counter()
+    n_frames, fh, fw, _ = clip.shape
+    chunks = -(-n_frames // 8)
+    src = os.path.join(work, "clip.avi")
+    video_io.write_video(src, clip, 30.0, codec="FFV1")
+    total = {}
+    for name, combo in CONFIGS.items():
+        t0 = time.perf_counter()
+        model, pipe, tr = combo["model"], combo["pipeline"], combo["train"]
+        cfg = ModelConfig(**model)
+        pcfg = PipelineConfig(batch_windows=8, output_codec="FFV1", **pipe)
+        st = Stabilizer(cfg, pcfg, seed=SEED)
+        hgen = torch.Generator().manual_seed(SEED + 1)
+        with torch.no_grad():  # small nonzero heads: a real warp
+            for s in range(cfg.num_stages):
+                head = getattr(st.model, f"stage{s}").head
+                head.weight.copy_(torch.randn(head.weight.shape, generator=hgen) * 1e-3)
+        (out, flows), infer_s, launches = launched(lambda: st.stabilize_frames(clip))
+        want = config_launches(model, chunks=chunks)
+        dtype = (bfloat16() if pcfg.warp_field_dtype == "bfloat16"
+                 else np.dtype(pcfg.warp_field_dtype))
+        check(out.shape == clip.shape and out.dtype == np.uint8,
+              f"{name}: frames {out.shape} {out.dtype}")
+        check(flows.shape == (n_frames, *cfg.model_resolution, 2) and flows.dtype == dtype,
+              f"{name}: fields {flows.shape} {flows.dtype}, not {dtype}")
+        flows32 = flows.astype(np.float32)
+        check(bool(np.isfinite(flows32).all()), f"{name}: fields finite")
+        flow_max = float(np.abs(flows32).max())
+        check(flow_max > 1e-4, f"{name}: fields nonzero ({flow_max})")
+        changed = float((out != clip).mean())
+        check(changed > 0.01, f"{name}: warp changed the frames ({changed})")
+        check(launches == want, f"{name}: stabilize_frames launches {launches}, derived {want}")
+        # the file path: the border crop, and the archive only when asked for
+        dst, wf = os.path.join(work, f"{name}.avi"), os.path.join(work, f"{name}.npz")
+        res, video_s, _ = launched(lambda: st.stabilize_video(src, dst, warp_field_path=wf))
+        dy, dx = int(fh * pcfg.border_crop_frac), int(fw * pcfg.border_crop_frac)
+        decoded, _ = video_io.read_video(dst, dtype=np.uint8)
+        check(decoded.shape == (n_frames, fh - 2 * dy, fw - 2 * dx, 3)
+              and np.array_equal(decoded, out[:, dy: fh - dy, dx: fw - dx]),
+              f"{name}: stabilize_video {decoded.shape} against the cropped frames")
+        if pcfg.emit_warp_fields:
+            kept = load_warp_fields(wf)
+            check(res.get("warp_fields") == wf and kept.dtype == dtype
+                  and np.array_equal(kept.view(np.uint8), flows.view(np.uint8)),
+                  f"{name}: archive {kept.dtype} {kept.shape} against the fields")
+        else:
+            check("warp_fields" not in res and not os.path.exists(wf),
+                  f"{name}: an archive without emit_warp_fields: {res}")
+        sd = {k: v.cpu() for k, v in st.model.state_dict().items()}
+        del st
+        parity = chunk_vs_cpu_f32(torch, np, cfg, sd, clip)
+        del sd
+
+        tcfg = TrainConfig(batch_size=8, log_every=1, seed=SEED,
+                           checkpoint_dir=os.path.join(work, f"ckpt-{name}"), **tr)
+        init = create_train_state(cfg, tcfg, "cuda")
+        tracked = ("g", "d") + (("g_ema",) if init.g_ema is not None else ())
+        before = {m: {n: p.detach().clone() for n, p in getattr(init, m).named_parameters()}
+                  for m in tracked}
+        del init
+        logged = []
+        batches = synthetic_batch_iterator(cfg, tcfg, seed=SEED)
+        try:
+            tstate, train_s, t_launches = launched(lambda: train(
+                cfg, tcfg, batches, max_steps=CONFIGS_TRAIN_STEPS, log_fn=logged.append))
+        finally:
+            batches.close()
+        t_want = config_launches(model, steps=CONFIGS_TRAIN_STEPS, accum=tcfg.grad_accum_steps)
+        check(len(logged) == CONFIGS_TRAIN_STEPS == tstate.step, f"{name}: steps {tstate.step}")
+        check(all(np.isfinite(v) for m in logged for v in m.values()), f"{name}: {logged}")
+        head = f"stage{cfg.num_stages - 1}.head.weight"
+        after = {m: dict(getattr(tstate, m).named_parameters()) for m in tracked}
+        t_changed = {m: sum(not torch.equal(before[m][n], p) for n, p in after[m].items())
+                     for m in tracked}
+        check(t_changed["d"] == len(before["d"])
+              and all(t_changed[m] > 0 and not torch.equal(before[m][head], after[m][head])
+                      for m in tracked if m != "d"),
+              f"{name}: parameters changed {t_changed}")
+        check(t_launches == t_want, f"{name}: train launches {t_launches}, derived {t_want}")
+        del tstate, after, before
+        tiny_model = {k: v for k, v in model.items() if k != "use_dropout"}
+        tiny = tiny_step_vs_cpu(torch, tiny_model, tr)
+        for counts in (launches, t_launches):
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+        emit("configs", name=name, overrides=combo,
+             stabilize_frames={"seconds": infer_s, "launches": launches, "derived": want,
+                               "frames": list(out.shape), "fields": list(flows.shape),
+                               "fields_dtype": str(flows.dtype), "flow_abs_max": flow_max,
+                               "share_pixels_changed": changed},
+             stabilize_video={"seconds": video_s, "frames": list(decoded.shape),
+                              "border_crop_px": [dy, dx], "archive": "warp_fields" in res,
+                              "bitwise_equal_to_stabilize_frames": True},
+             card_vs_cpu_f32=parity,
+             train={"steps": CONFIGS_TRAIN_STEPS, "seconds": train_s, "launches": t_launches,
+                    "derived": t_want, "tensors_changed": t_changed,
+                    "first": logged[0], "last": logged[-1]},
+             card_vs_cpu_train_f32={**tiny, "model": tiny_model,
+                                    "dropout": ("off: the card and the CPU draw different "
+                                                "masks") if model.get("use_dropout") else "off"},
+             seconds=time.perf_counter() - t0)
+
+    # the CLI, once, with A's flags
+    cli_wf = os.path.join(work, "cli_fields.npz")
+    line, _, secs, launches = run_cli(
+        ["stabilize", "--synthetic", "--frames", str(n_frames), "--height", str(fh),
+         "--width", str(fw), *CONFIGS_CLI_MODEL, "--warp-dtype", "float16",
+         "--border-crop", "0.05", "--warp-fields", cli_wf])
+    cli_model = dataclasses.asdict(_model_cfg(build_parser().parse_args(
+        ["stabilize", *CONFIGS_CLI_MODEL])))
+    # the synthetic clip is float: its output warp takes the f32 kernel
+    want = config_launches(cli_model, chunks=chunks, uint8=False)
+    kept = load_warp_fields(cli_wf)
+    check(line["frames"] == n_frames and kept.shape == (n_frames, 256, 256, 2)
+          and kept.dtype == np.float16, f"cli stabilize: {line}, {kept.shape} {kept.dtype}")
+    check(launches == want, f"cli stabilize launches {launches}, derived {want}")
+    cli_stab = {"line": line, "seconds": secs, "launches": launches, "derived": want}
+    line, lines, secs, launches = run_cli(
+        ["train", "--synthetic", "--steps", "2", "--log-every", "1",
+         "--checkpoint-dir", os.path.join(work, "ckpt-cli"), *CONFIGS_CLI_MODEL,
+         *CONFIGS_CLI_TRAIN])
+    logged = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    want = config_launches(cli_model, steps=2, accum=2)
+    check([m["step"] for m in logged if "loss_g" in m] == [1, 2]
+          and all(math.isfinite(v) for m in logged if "loss_g" in m for v in m.values()),
+          f"cli train: {logged}")
+    check(launches == want, f"cli train launches {launches}, derived {want}")
+    emit("configs_total", seconds=time.perf_counter() - t_phase, combinations=list(CONFIGS),
+         train_steps=CONFIGS_TRAIN_STEPS,
+         cli={"stabilize": cli_stab, "train": {"line": line, "seconds": secs,
+                                               "launches": launches, "derived": want}},
+         nvidia_smi=nvidia_smi())
+    return total
+
+
+def frozen_logit_scale(d) -> list:
+    """Hook the discriminator ``d``: the returned list gets the mean
+    |logit| of each of its calls with its parameters frozen (G's loss).
+    The hinge adversarial term is the mean of those signed logits, so its
+    rounding lives at their scale, not at its own value, which lies near
+    0 where the logits are about as often positive as negative (a fresh
+    D's)."""
+    seen = []
+
+    def hook(module, args, out):
+        if not any(p.requires_grad for p in module.parameters()):
+            seen.append(float(out.detach().abs().mean()))
+
+    d.register_forward_hook(hook)
+    return seen
+
+
+def tiny_step_vs_cpu(torch, model_over=None, train_over=None) -> dict:
+    """One f32 train step (TF32 off) at ``TINY_TRAIN`` with the
+    ``ModelConfig`` overrides ``model_over`` and the ``TrainConfig``
+    overrides ``train_over``, on the card and on the CPU from one state
+    (heads redrawn at std 1e-2: grids off the identity) and one batch:
+    metrics within a relative 1e-4 (the hinge adversarial term relative
+    to its value plus the scale of its logits, ``frozen_logit_scale``),
+    G's and D's parameters within 2 lr, and those that feed no norm
+    within 1e-6 on 99.9 % (checked)."""
+    from pwstablenet_tpu_torch.config import ModelConfig, TrainConfig
+    from pwstablenet_tpu_torch.data.synthetic import make_train_batch
+    from pwstablenet_tpu_torch.train.loop import batch_to_device
+    from pwstablenet_tpu_torch.train.state import create_train_state, feeds_a_norm
+    from pwstablenet_tpu_torch.train.step import make_train_step
+
+    tiny = ModelConfig(**{**TINY_TRAIN, **(model_over or {})})
+    ttcfg = TrainConfig(batch_size=2, num_epochs=1, steps_per_epoch=10, **(train_over or {}))
+    tiny_batch = make_train_batch(2, 32, 32, tiny.temporal_window, seed=3)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pair, logits = {}, []
+    for dev in ("cpu", "cuda"):
+        st_ = create_train_state(tiny, ttcfg, dev)
+        hgen = torch.Generator().manual_seed(SEED + 2)
+        with torch.no_grad():  # nonzero heads: grids off the identity
+            for s_ in range(tiny.num_stages):
+                head = getattr(st_.g, f"stage{s_}").head
+                head.weight.copy_(torch.randn(head.weight.shape, generator=hgen) * 1e-2)
+        if dev == "cpu" and ttcfg.gan_loss == "hinge":
+            logits = frozen_logit_scale(st_.d)
+        m_ = make_train_step(tiny, ttcfg)(st_, batch_to_device(tiny_batch, torch.device(dev)))
+        pair[dev] = (st_, {k: float(v) for k, v in m_.items()})
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    scales = {"adv": statistics.mean(logits)} if logits else {}
+    rel = {k: abs(pair["cuda"][1][k] - v) / max(abs(v) + scales.get(k, 0.0), 1e-12)
+           for k, v in pair["cpu"][1].items()}
+    diffs, free = [], []
+    for m in ("g", "d"):
+        c_sd = dict(getattr(pair["cpu"][0], m).named_parameters())
+        for n, p in getattr(pair["cuda"][0], m).named_parameters():
+            d_ = (p.detach().cpu() - c_sd[n].detach()).abs().flatten()
+            diffs.append(d_)
+            if not feeds_a_norm(n, c_sd):
+                free.append(d_)
+    pdiff = torch.cat(diffs)
+    share = float((torch.cat(free) <= 1e-6).double().mean())
+    check(max(rel.values()) <= 1e-4, f"card vs CPU train metrics: {rel}")
+    check(float(pdiff.max()) <= 2 * ttcfg.lr_g * (1 + 1e-3) and share >= 0.999,
+          f"card vs CPU train params: max {float(pdiff.max())}, share {share}")
+    return {"metrics_max_rel_diff": max(rel.values()), "metrics_rel": rel,
+            "param_max_abs_diff": float(pdiff.max()), "param_share_within_1em6": share,
+            **({"metric_scales": scales} if scales else {})}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1876,7 +2210,7 @@ def main() -> int:
     from pwstablenet_tpu_torch.train.loop import (
         batch_to_device, synthetic_batch_iterator, train,
     )
-    from pwstablenet_tpu_torch.train.state import create_train_state, feeds_a_norm
+    from pwstablenet_tpu_torch.train.state import create_train_state
     from pwstablenet_tpu_torch.train.step import make_train_step
 
     train_steps = 5
@@ -1920,42 +2254,11 @@ def main() -> int:
 
     # one f32 step (TF32 off) at a tiny config on the card and on the
     # CPU, from one state and batch
-    tiny = ModelConfig(temporal_window=3, num_levels=4, base_features=8, max_features=16,
-                       model_resolution=(32, 32), num_stages=2, disc_num_layers=2,
-                       feat_channels=(8, 16), compute_dtype="float32")
-    ttcfg = TrainConfig(batch_size=2, num_epochs=1, steps_per_epoch=10)
-    tiny_batch = make_train_batch(2, 32, 32, tiny.temporal_window, seed=3)
-    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    pair = {}
-    for dev in ("cpu", "cuda"):
-        st_ = create_train_state(tiny, ttcfg, dev)
-        hgen = torch.Generator().manual_seed(SEED + 2)
-        with torch.no_grad():  # nonzero heads: grids off the identity
-            for s_ in range(tiny.num_stages):
-                head = getattr(st_.g, f"stage{s_}").head
-                head.weight.copy_(torch.randn(head.weight.shape, generator=hgen) * 1e-2)
-        m_ = make_train_step(tiny, ttcfg)(st_, batch_to_device(tiny_batch, torch.device(dev)))
-        pair[dev] = (st_, {k: float(v) for k, v in m_.items()})
-    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-    rel = {k: abs(pair["cuda"][1][k] - v) / max(abs(v), 1e-12) for k, v in pair["cpu"][1].items()}
-    diffs, free = [], []
-    for m in ("g", "d"):
-        c_sd = dict(getattr(pair["cpu"][0], m).named_parameters())
-        for n, p in getattr(pair["cuda"][0], m).named_parameters():
-            d_ = (p.detach().cpu() - c_sd[n].detach()).abs().flatten()
-            diffs.append(d_)
-            if not feeds_a_norm(n, c_sd):
-                free.append(d_)
-    pdiff = torch.cat(diffs)
-    share = float((torch.cat(free) <= 1e-6).double().mean())
-    emit("card_vs_cpu_train_f32", metrics_max_rel_diff=max(rel.values()), metrics_rel=rel,
-         param_max_abs_diff=float(pdiff.max()), param_share_within_1em6=share)
-    check(max(rel.values()) <= 1e-4, f"card vs CPU train metrics: {rel}")
-    check(float(pdiff.max()) <= 2 * ttcfg.lr_g * (1 + 1e-3) and share >= 0.999,
-          f"card vs CPU train params: max {float(pdiff.max())}, share {share}")
-    del pair
+    emit("card_vs_cpu_train_f32", **tiny_step_vs_cpu(torch))
+
+    # ---- the JAX package's other settings, at full width -------------
+    with tempfile.TemporaryDirectory() as work:
+        configs_launches = configs(torch, np, clip, work)
 
     # ---- 7. training timings ----------------------------------------
     # ms per full-width train step on one device batch
@@ -2083,6 +2386,7 @@ def main() -> int:
          "launches_causal": causal_launches["grid_sample_f32"],
          "launches_recipe": recipe_launches["grid_sample_f32"],
          "launches_bench": bench_launches["grid_sample_f32"],
+         "launches_configs": configs_launches["grid_sample_f32"],
          "max_abs_err": f32_err,
          "ms": k1["ms"], "kernel_ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": b1, "bound_by": by1, "library_ms": k1["library_ms"],
@@ -2100,6 +2404,7 @@ def main() -> int:
          "launches_causal": causal_launches["grid_sample_packed_u8"],
          "launches_recipe": recipe_launches["grid_sample_packed_u8"],
          "launches_bench": bench_launches["grid_sample_packed_u8"],
+         "launches_configs": configs_launches["grid_sample_packed_u8"],
          "max_abs_err": u8_err,
          "ms": k2["ms"], "kernel_ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": b2, "bound_by": by2, "library_ms": k2["library_ms"],
@@ -2113,6 +2418,7 @@ def main() -> int:
          **{f"launches_{path}": n["grid_sample_grad_f32"] for path, n in par.items()},
          "launches_recipe": recipe_launches["grid_sample_grad_f32"],
          "launches_bench": bench_launches["grid_sample_grad_f32"],
+         "launches_configs": configs_launches["grid_sample_grad_f32"],
          "max_abs_err": grad_err,
          "ms": k3["ms"], "kernel_ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": b3, "bound_by": by3, "library_ms": k3["library_ms"],

@@ -63,13 +63,13 @@ class ModelConfig:
     # --- PatchGAN discriminator (training slice) ---
     disc_base_features: int = 64
     disc_num_layers: int = 3
-    disc_norm: str = "instance"
+    disc_norm: str = "instance"       # batch | instance | group | none
 
     # --- perceptual feature extractor (training slice) ---
     feat_channels: Tuple[int, ...] = (32, 64, 128)
 
     # --- numerics ---
-    compute_dtype: str = "bfloat16"   # activations inside the network
+    compute_dtype: str = "bfloat16"   # bfloat16 | float32: activations inside the network
     param_dtype: str = "float32"
 
     def __post_init__(self):
@@ -213,6 +213,6 @@ class PipelineConfig:
     # dtype warp fields cross device->host in; float16 halves the D2H
     # bytes of the flow stream (keep float32 when feeding flows back
     # into computation)
-    warp_field_dtype: str = "float32"
+    warp_field_dtype: str = "float32"  # float32 | float16 | bfloat16
     output_codec: str = "mp4v"
     prefetch_depth: int = 2

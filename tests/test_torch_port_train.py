@@ -88,6 +88,7 @@ from pwstablenet_tpu_torch.train.state import (
 )
 from pwstablenet_tpu_torch.train.step import make_train_step
 
+from chip_smoke import frozen_logit_scale
 from torch_port_kinks import KINDS, Kinks, _branch
 
 # the TINY config of tests/test_train_step.py
@@ -199,13 +200,17 @@ def _step_both(taps, jstep, jstate, step, state, batch):
     return jstate, jm, m
 
 
-def _assert_step_close(m, jm, state, jstate, lr, updates):
+def _assert_step_close(m, jm, state, jstate, lr, updates, scales=None):
     """The metrics, G, D, the feature extractor and the EMA after a step
-    against JAX's, ``updates`` Adam updates into the run."""
+    against JAX's, ``updates`` Adam updates into the run.  A metric is
+    held within 1e-4 of its value, plus 1e-4 of its scale in ``scales``
+    where given: the mean magnitude of the terms that it averages."""
     assert set(m) == set(jm)
+    scales = scales or {}
     for k in jm:
         assert m[k].device == CPU and m[k].dim() == 0
-        np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-4, err_msg=k)
+        np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-4,
+                                   atol=1e-4 * scales.get(k, 0.0), err_msg=k)
     _assert_params_close(state.g, jstate.g_params, lr, updates, "G")
     _assert_params_close(state.d, jstate.d_params, lr, updates, "D")
     _assert_params_close(state.feat, jstate.feat_params, 0.0, updates, "feat")
@@ -213,21 +218,30 @@ def _assert_step_close(m, jm, state, jstate, lr, updates):
         _assert_params_close(state.g_ema, jstate.g_ema, lr, updates, "EMA")
 
 
-def _run_pair(train_over, check=True):
-    """Both steps on ``SEEDS``, through ``Kinks``; after each step's
+def _run_pair(train_over, check=True, model_over=None, hinge_at_scale=False):
+    """Both steps on ``SEEDS``, through ``Kinks``, at ``TINY`` with
+    ``model_over``; after each step's
     checks the port's whole state is set to JAX's, so each step starts
-    from one state on both sides.  Returns, per step, the share of G's
+    from one state on both sides.  ``hinge_at_scale``: the hinge
+    adversarial term is held at the scale of its logits
+    (``chip_smoke.frozen_logit_scale``).  Returns, per step, the share of G's
     and D's elements that do not feed a norm within 1e-6, their max
     |diff| / lr, and the arguments ``Kinks`` moved to JAX's branch, by
     stream."""
     over = {**TCFG, **train_over}
-    jstep, jstate, step, state = _pair(TINY, over)
-    taps = Kinks(TINY.get("align_corners", True), accum=over.get("grad_accum_steps", 1),
-                 stages=TINY["num_stages"])
+    model = {**TINY, **(model_over or {})}
+    jstep, jstate, step, state = _pair(model, over)
+    taps = Kinks(model.get("align_corners", True), accum=over.get("grad_accum_steps", 1),
+                 stages=model["num_stages"], interstage=model.get("interstage", "both"))
     lr = over["lr_g"]
+    logits = None
+    if hinge_at_scale and over.get("gan_loss") == "hinge":
+        logits = frozen_logit_scale(state.d)
     readings = []
     for n, seed in enumerate(SEEDS, start=1):
-        batch = make_train_batch(2, 32, 32, TINY["temporal_window"], seed=seed)
+        batch = make_train_batch(2, 32, 32, model["temporal_window"], seed=seed)
+        if logits is not None:
+            logits.clear()
         jstate, jm, m = _step_both(taps, jstep, jstate, step, state, batch)
         readings.append({
             **{what: (float((free <= 1e-6).double().mean()), float(free.max()) / lr)
@@ -236,7 +250,8 @@ def _run_pair(train_over, check=True):
             "moved": dict(taps.moved)})
         if check:
             assert state.step == int(jstate.step) == n
-            _assert_step_close(m, jm, state, jstate, lr, n)
+            scales = {"adv": float(np.mean(logits))} if logits else None
+            _assert_step_close(m, jm, state, jstate, lr, n, scales)
         _sync_from_jax(state, jstate, full=True)
     return readings
 

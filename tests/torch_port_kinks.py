@@ -40,15 +40,17 @@ KINK_MARGIN = 1e-5
 KINDS = ("abs", "relu", "leaky_relu", "maximum")
 
 
-def grid_calls(accum=1, stages=2):
+def grid_calls(accum=1, stages=2, interstage="both"):
     """The JAX step's sampler calls that match the port's, in the port's
     order, and the number of the JAX step's calls.  A generator forward
-    warps between its stages (``stages - 1`` calls) in both packages.
+    warps between its stages (``stages - 1`` calls) in both packages
+    when ``interstage`` feeds the next stage the warped frame
+    (``warped``, ``both``), and not at all under ``features``.
     The D update warps every stage in JAX and keeps the last, the port
     warps the last only; the G loss warps every stage in both.  Under
     accumulation JAX's two scans run these per micro-batch, phase 1 (the
     D update's) for every micro-batch, then phase 2 (the G loss's)."""
-    inter = stages - 1
+    inter = stages - 1 if interstage in ("warped", "both") else 0
     if accum == 1:
         ours = list(range(inter)) + [inter + stages - 1]
         ours += range(inter + stages, inter + 2 * stages)
@@ -133,12 +135,12 @@ class Kinks:
     """
 
     def __init__(self, align_corners=True, margin=KINK_MARGIN, follow=KINDS, strict=True,
-                 accum=1, stages=2):
+                 accum=1, stages=2, interstage="both"):
         assert ("maximum" in follow) == ("abs" in follow), "the BCE's pair is followed together"
         self.values = collections.defaultdict(list)
         self.align_corners, self.margin = align_corners, margin
         self.follow, self.strict = follow, strict
-        self.grid_calls, self.jax_grids = grid_calls(accum, stages)
+        self.grid_calls, self.jax_grids = grid_calls(accum, stages, interstage)
 
     def _record(self, stream, v):
         self.values[stream].append(np.asarray(v))
